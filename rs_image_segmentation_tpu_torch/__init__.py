@@ -1,0 +1,18 @@
+"""PyTorch + CUDA port of ``rs_image_segmentation_tpu`` for NVIDIA Hopper.
+
+Module names mirror the JAX package so each counterpart is easy to find.
+The port imports neither JAX nor the JAX package; it keeps its own copies
+of the host-side numpy code it needs (configs, stretch tables, the CART
+trainer).
+
+Ported so far: the supervised turbo path
+``pipeline.turbo.classify_scenes_turbo`` — raw ``(B, 7, H, W)`` uint8
+scenes -> stretch preamble (CUDA kernel ``lut_hist``) -> 19-channel
+channel-major stack -> forest labels (CUDA kernel ``forest_labels``) ->
+``(B, H, W)`` uint8 class maps.
+
+Entry points run on CUDA unless the caller passes ``device="cpu"``; with
+no CUDA device and no explicit device they raise (``backend.py``).
+"""
+
+__version__ = "0.1.0"

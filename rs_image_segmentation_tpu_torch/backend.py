@@ -1,0 +1,32 @@
+"""Device resolution and f32 numerics for the port's entry points.
+
+Entry points run on CUDA unless the caller names another device; a call
+with no device on a host without CUDA raises instead of drifting to the
+CPU. Resolving a CUDA device also turns TF32 off for matmuls and cuDNN
+convolutions: the feature stack is held to f32 parity with the JAX
+package, and cuDNN convolutions default to TF32.
+"""
+
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """The device an entry point runs on: ``device`` if given, else the
+    current CUDA device. Raises when no device is given and CUDA is absent.
+    """
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pass device='cpu' to run on the CPU")
+        device = torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return device

@@ -1,0 +1,286 @@
+"""The port's hand-written CUDA kernels, each beside its plain PyTorch
+version.
+
+* ``lut_hist`` (``csrc/lut_hist.cu``) replaces ``lut_hist_pallas``: a
+  per-band uint8 table over a uint8 scene, with an optional int32
+  histogram of the stretched values.
+* ``forest_labels`` (``csrc/forest_labels.cu``) replaces
+  ``forest_labels_pallas``: GemmForest labels over channel-major features.
+
+A wrapper takes its plain version only for a tensor on the CPU. For a CUDA
+tensor it launches the kernel on the current stream or raises; nothing
+falls back. Each wrapper counts its launches in ``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from . import _build
+
+_P = ctypes.c_void_p
+
+
+def _call(lib_name: str, fn_name: str, argtypes, *args) -> None:
+    fn = getattr(_build.load(lib_name), fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} failed: cudaError_t {rc}")
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _require_cuda(*tensors: torch.Tensor) -> None:
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"tensors on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError("the CUDA kernel takes contiguous tensors")
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+
+
+# ---------------------------------------------------------------- lut_hist
+
+def apply_u8_lut(planes_u8: torch.Tensor, lut_u8: torch.Tensor
+                 ) -> torch.Tensor:
+    """Exact (..., C, H, W) uint8 -> uint8 per-band table lookup with
+    (..., C, 256) tables: a plain gather."""
+    *lead, h, w = planes_u8.shape
+    idx = planes_u8.reshape(-1, h * w).long()
+    return torch.gather(lut_u8.reshape(-1, 256), 1, idx).reshape(
+        planes_u8.shape)
+
+
+def histogram256(planes_u8: torch.Tensor) -> torch.Tensor:
+    """(..., H, W) uint8 -> (..., 256) int32 counts (exact integers: the
+    percentile ranks compare them as integers)."""
+    *lead, h, w = planes_u8.shape
+    idx = planes_u8.reshape(-1, h * w).long()
+    hist = torch.zeros(idx.shape[0], 256, dtype=torch.int32,
+                       device=planes_u8.device)
+    hist.scatter_add_(1, idx, torch.ones_like(idx, dtype=torch.int32))
+    return hist.reshape(*lead, 256)
+
+
+def lut_hist_plain(scene_u8: torch.Tensor, lut_u8: torch.Tensor,
+                   out_u8: bool = False, skip_hist: bool = False):
+    """Plain version of :func:`lut_hist`: :func:`apply_u8_lut`, then
+    :func:`histogram256` of the stretched scene."""
+    st = apply_u8_lut(scene_u8, lut_u8)
+    out = st if out_u8 else st.to(torch.float32)
+    return out if skip_hist else (out, histogram256(st))
+
+
+def lut_hist(scene_u8: torch.Tensor, lut_u8: torch.Tensor,
+             out_u8: bool = False, sp: "torch.Tensor | None" = None,
+             skip_hist: bool = False):
+    """``(..., C, H, W)`` uint8 scene + ``(..., C, 256)`` uint8 LUT ->
+    (stretched scene holding exact uint8 levels, f32 or uint8 with
+    ``out_u8``; stretched-value histogram ``(..., C, 256)`` int32).
+
+    ``sp``: ``(..., C, 3 + 2K)`` int32 fixed-point params from
+    ``build_stretch_params``. Their mode-1 arithmetic equals the table for
+    every DN in the scene, so both versions serve every band from the
+    table and only check ``sp``'s shape. ``skip_hist=True`` (requires
+    ``sp``, as in the JAX package) returns the stretched scene only."""
+    _require(scene_u8.dtype == torch.uint8 and scene_u8.dim() in (3, 4),
+             "scene_u8 must be a (C, H, W) or (B, C, H, W) uint8 tensor")
+    _require(lut_u8.dtype == torch.uint8
+             and tuple(lut_u8.shape) == (*scene_u8.shape[:-2], 256),
+             "lut_u8 must be uint8 of shape (..., C, 256)")
+    if sp is not None:
+        _require(sp.dtype == torch.int32
+                 and tuple(sp.shape[:-1]) == tuple(scene_u8.shape[:-2])
+                 and sp.shape[-1] >= 3 and sp.shape[-1] % 2 == 1,
+                 "sp must be int32 of shape (..., C, 3 + 2K)")
+    elif skip_hist:
+        raise ValueError("skip_hist requires sp (the mixed kernel)")
+    if scene_u8.device.type == "cpu":
+        return lut_hist_plain(scene_u8, lut_u8, out_u8, skip_hist)
+    _require_cuda(scene_u8, lut_u8)
+    h, w = scene_u8.shape[-2:]
+    dev = scene_u8.device
+    out = torch.empty(scene_u8.shape, device=dev,
+                      dtype=torch.uint8 if out_u8 else torch.float32)
+    # an accumulator: blocks add their counts into it with atomics
+    hist = (None if skip_hist else
+            torch.zeros((*scene_u8.shape[:-2], 256), dtype=torch.int32,
+                        device=dev))
+    _call("lut_hist", "lut_hist_launch",
+          [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _P],
+          scene_u8.data_ptr(), lut_u8.data_ptr(), out.data_ptr(),
+          None if hist is None else hist.data_ptr(), int(out_u8),
+          scene_u8.numel() // (h * w), h * w, _stream(dev))
+    lut_hist.launches += 1
+    return out if skip_hist else (out, hist)
+
+
+lut_hist.launches = 0
+
+
+# ----------------------------------------------------------- forest_labels
+
+_CHUNK = 32768      # pixels per matmul block of the plain forest
+
+
+def gemm_labels_cm(gf, x_cm: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`forest_labels` (the JAX package's
+    ``pipeline.turbo.gemm_labels_cm``): matmuls over pixel chunks, the
+    feature pick and the votes in f32 (exact: one-hot and +-1 operands).
+    The leaf-distribution sum runs in f64 and rounds once to f32, so the
+    f32 totals do not depend on the summation order (see
+    ``csrc/forest_labels.cu``). ``x_cm``: (F, N) or (B, F, N) f32 -> (N,)
+    or (B, N) int32."""
+    dev = x_cm.device
+    sel_t = gf.selector.to(dev).T                       # (M, F)
+    thr = gf.thresholds.to(dev)[:, None]
+    path_t = gf.path.to(dev).T                          # (L, M)
+    plen = gf.path_len.to(dev)[:, None]
+    dist_t = gf.leaf_dist.to(dev, torch.float64).T      # (C, L)
+    inv = gf.inv_trees.to(dev)
+    classes = gf.classes.to(dev)
+    x3 = x_cm if x_cm.dim() == 3 else x_cm[None]
+    out = torch.empty((x3.shape[0], x3.shape[2]), dtype=classes.dtype,
+                      device=dev)
+    for b in range(x3.shape[0]):
+        for s in range(0, x3.shape[2], _CHUNK):
+            xb = x3[b, :, s:s + _CHUNK]
+            xv = sel_t @ xb
+            sgn = torch.where(xv <= thr, 1.0, -1.0)
+            votes = path_t @ sgn
+            fired = (votes == plen).to(torch.float64)
+            total = (dist_t @ fired).to(torch.float32) * inv
+            # torch.argmax returns the first maximal index: ties go to the
+            # lowest class, as in sklearn and the JAX package
+            out[b, s:s + _CHUNK] = classes[torch.argmax(total, dim=0)]
+    return out if x_cm.dim() == 3 else out[0]
+
+
+_UNSET = np.iinfo(np.int32).max
+
+
+def pack_forest(gf) -> Dict[str, np.ndarray]:
+    """The kernel's tree form of a GemmForest (host numpy).
+
+    ``nodes``: (M, 4) int32 records ``{feature, threshold bits, left,
+    right}``; ``left`` is taken on ``x <= thr`` (path sign +1). A child
+    ``>= 0`` is an internal node, a child ``< 0`` is the leaf ``~child``.
+    ``roots``: (T,) int32 per tree in order of its first leaf; a root
+    ``< 0`` is a one-leaf tree. Plus ``leaf_dist`` and ``classes``.
+
+    The links come from the leaves' paths, each read root first (ascending
+    node column: the columns are numbered in preorder). A walk from a root
+    then reaches exactly the leaf whose decisions all agree, the one that
+    fires in the dense form. Raises when the GemmForest is outside the
+    kernel's contract: a selector column on a leaf path that is not
+    one-hot, a path_len that is not its path's length, or paths that do
+    not form binary trees."""
+    sel = gf.selector.cpu().numpy()
+    path = gf.path.cpu().numpy()
+    path_len = gf.path_len.cpu().numpy()
+    leaf, node = np.nonzero(path.T)         # row-major: by leaf, then node
+    m, n_leaves = path.shape
+    counts = np.bincount(leaf, minlength=n_leaves)
+    _require(np.array_equal(counts.astype(np.float32), path_len),
+             "path_len must equal each leaf's path length")
+    used = np.unique(node)
+    onehot = sel[:, used]
+    _require(bool(np.isin(onehot, (0.0, 1.0)).all()
+                  and (onehot.sum(axis=0) == 1).all()),
+             "selector columns on a leaf path must be one-hot")
+    child = np.full((m, 2), _UNSET, np.int64)   # side 1: sign -1 (x > thr)
+    roots: Dict[int, None] = {}                  # ordered set
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    for lf in range(n_leaves):
+        trail = node[starts[lf]:starts[lf + 1]]
+        roots[int(trail[0]) if trail.size else ~lf] = None
+        sides = (path[trail, lf] < 0).astype(np.int64)
+        for nd, side, to in zip(trail, sides, [*trail[1:], ~lf]):
+            _require(child[nd, side] in (_UNSET, to),
+                     "the leaf paths do not form binary trees")
+            child[nd, side] = to
+    inner = child[used]
+    targets = inner[inner >= 0]
+    _require(bool((inner != _UNSET).all())
+             and np.unique(targets).size == targets.size
+             and not np.isin(list(roots), targets).any(),
+             "the leaf paths do not form binary trees")
+    nodes = np.zeros((m, 4), np.int32)
+    nodes[:, 0] = sel.argmax(axis=0)
+    nodes[:, 1] = gf.thresholds.cpu().numpy().astype(np.float32).view(np.int32)
+    nodes[used, 2:] = inner
+    return {
+        "nodes": nodes,
+        "roots": np.asarray(list(roots), np.int32),
+        "leaf_dist": np.ascontiguousarray(
+            gf.leaf_dist.cpu().numpy().astype(np.float32)),
+        "classes": gf.classes.cpu().numpy().astype(np.int32),
+    }
+
+
+_PACKED: Dict[Tuple[int, str], tuple] = {}
+
+
+def _packed_on(gf, device: torch.device) -> Tuple[Dict[str, torch.Tensor],
+                                                  float]:
+    """``pack_forest(gf)`` on ``device`` and ``inv_trees`` as a host float,
+    cached by buffer identity."""
+    key = (id(gf.path), str(device))
+    hit = _PACKED.get(key)
+    if hit is None:
+        packed = {k: torch.from_numpy(v).to(device)
+                  for k, v in pack_forest(gf).items()}
+        # a strong reference to the keyed buffer: a recycled id() of a
+        # collected tensor would otherwise serve the wrong forest
+        hit = _PACKED[key] = (gf.path, packed, float(gf.inv_trees))
+    return hit[1], hit[2]
+
+
+def forest_labels(gf, x_cm: torch.Tensor) -> torch.Tensor:
+    """GemmForest labels over channel-major features: (F, N) or (B, F, N)
+    f32 -> (N,) or (B, N) int32, bit-equal to :func:`gemm_labels_cm`
+    (first-index argmax on ties)."""
+    _require(x_cm.dtype == torch.float32 and x_cm.dim() in (2, 3),
+             "x_cm must be a (F, N) or (B, F, N) f32 tensor")
+    n_features = gf.selector.shape[0]
+    _require(x_cm.shape[-2] == n_features,
+             f"x_cm has {x_cm.shape[-2]} features, the forest {n_features}")
+    if x_cm.device.type == "cpu":
+        return gemm_labels_cm(gf, x_cm)
+    _require_cuda(x_cm)
+    fp, inv_trees = _packed_on(gf, x_cm.device)
+    n_classes = fp["leaf_dist"].shape[1]
+    max_classes = _build.load("forest_labels").forest_labels_max_classes()
+    _require(n_classes <= max_classes,
+             f"the forest kernel takes at most {max_classes} classes, "
+             f"not {n_classes}")
+    x3 = x_cm if x_cm.dim() == 3 else x_cm[None]
+    batch, _, n = x3.shape
+    out = torch.empty((batch, n), dtype=torch.int32, device=x_cm.device)
+    _call("forest_labels", "forest_labels_launch",
+          [_P, _P, _P, ctypes.c_int, _P, _P, ctypes.c_float, ctypes.c_int,
+           ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P, _P],
+          x3.data_ptr(), fp["nodes"].data_ptr(), fp["roots"].data_ptr(),
+          fp["roots"].numel(), fp["leaf_dist"].data_ptr(),
+          fp["classes"].data_ptr(), inv_trees, n_classes, n_features, n,
+          batch, out.data_ptr(), _stream(x_cm.device))
+    forest_labels.launches += 1
+    return out if x_cm.dim() == 3 else out[0]
+
+
+forest_labels.launches = 0

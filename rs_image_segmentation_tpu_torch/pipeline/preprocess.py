@@ -1,0 +1,109 @@
+"""Host-side stretch preparation for the turbo preamble (numpy only).
+
+Counterpart of ``rs_image_segmentation_tpu.pipeline.preprocess``'s
+``calibrated_value_table``, ``build_stretch_lut``, ``build_stretch_params``
+and ``build_stretch_stats``, with identical numpy semantics: an exact f64
+per-DN calibrate+stretch LUT, int32 fixed-point per-band params, and the
+int32 histogram of the stretched scene.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def calibrated_value_table(gains, biases) -> np.ndarray:
+    """(C, 256) float32 table of f64-computed calibrated values per DN."""
+    g = np.asarray(gains, np.float64)[:, None]
+    b = np.asarray(biases, np.float64)[:, None]
+    dn = np.arange(256, dtype=np.float64)[None, :]
+    return (g * dn + b).astype(np.float32)
+
+
+def build_stretch_lut(arr_u8: np.ndarray, gains, biases) -> np.ndarray:
+    """Exact (C, 256) f64 calibrate+stretch LUT for a uint8 scene.
+
+    The present-value min/max of a band is the calibrated value of its
+    min/max DN (calibration is affine per band). DNs outside the band's
+    [min, max] go below 0 or above 255 before the uint8 cast and wrap
+    around; the scene never indexes them."""
+    g = np.asarray(gains, np.float64)
+    b = np.asarray(biases, np.float64)
+    c = arr_u8.shape[0]
+    dn = np.arange(256, dtype=np.float64)
+    lut = np.zeros((c, 256), np.float32)
+    for i in range(c):
+        cal = g[i] * dn + b[i]
+        ends = (cal[int(arr_u8[i].min())], cal[int(arr_u8[i].max())])
+        mn, mx = min(ends), max(ends)  # handles negative gains too
+        lut[i] = ((cal - mn) * 255.0 / (mx - mn)).astype(np.uint8)
+    return lut
+
+
+STRETCH_FIXUPS = 6      # per-band fixup slots in the fixed-point params
+_STRETCH_SHIFT = 16
+
+
+def build_stretch_params(arr_u8: np.ndarray, gains, biases):
+    """``(lut, params)``: the exact stretch LUT plus per-band int32
+    fixed-point params ``(C, 3 + 2*STRETCH_FIXUPS)``, per band
+    ``[mode, A32, B32, fix_dn*K, fix_delta*K]``.
+
+    ``mode=1`` guarantees ``clip((A32*dn + B32) >> 16, 0, 255) + fixups ==
+    lut[dn]`` for every DN in the band's [min, max]; ``mode=0`` marks bands
+    whose LUT the fixed point cannot reproduce within the fixup budget
+    (full-range bands, near-constant bands). Unused fixup slots hold DN -1.
+    Valid only for the scene the params were built from."""
+    lut = build_stretch_lut(arr_u8, gains, biases)
+    g = np.asarray(gains, np.float64)
+    b = np.asarray(biases, np.float64)
+    c = arr_u8.shape[0]
+    k = STRETCH_FIXUPS
+    params = np.full((c, 3 + 2 * k), -1, np.int32)
+    params[:, 0] = 0
+    for i in range(c):
+        vmin = int(arr_u8[i].min())
+        vmax = int(arr_u8[i].max())
+        cal_lo = g[i] * vmin + b[i]
+        cal_hi = g[i] * vmax + b[i]
+        mn, mx = min(cal_lo, cal_hi), max(cal_lo, cal_hi)
+        if mx <= mn:
+            continue                                    # mode 0
+        a = 255.0 * g[i] / (mx - mn)
+        off = (b[i] - mn) * 255.0 / (mx - mn)
+        a32 = int(round(a * (1 << _STRETCH_SHIFT)))
+        if abs(a32) > (1 << 23):     # A32 * 255 must stay in int32
+            continue                                    # mode 0
+        v = np.arange(vmin, vmax + 1, dtype=np.int64)
+        want = lut[i, vmin:vmax + 1].astype(np.int64)
+        best = None
+        for db in range(-2, 3):
+            b32 = int(round(off * (1 << _STRETCH_SHIFT))) + db
+            cand = np.clip((a32 * v + b32) >> _STRETCH_SHIFT, 0, 255)
+            bad = np.flatnonzero(cand != want)
+            if best is None or len(bad) < len(best[1]):
+                best = (b32, bad, cand)
+        b32, bad, cand = best
+        if len(bad) > k:
+            continue                                    # mode 0
+        params[i, 0] = 1
+        params[i, 1] = a32
+        params[i, 2] = b32
+        for s, j in enumerate(bad):
+            params[i, 3 + s] = int(v[j])
+            params[i, 3 + k + s] = int(want[j] - cand[j])
+    return lut, params
+
+
+def build_stretch_stats(arr_u8: np.ndarray, gains, biases):
+    """``(lut, params, hist_stretched)``: :func:`build_stretch_params` plus
+    the exact (C, 256) int32 histogram of the stretched scene — the raw-DN
+    bincount pushed through the LUT (the LUT is a per-DN function, so this
+    equals histogramming the stretched image)."""
+    lut, params = build_stretch_params(arr_u8, gains, biases)
+    c = arr_u8.shape[0]
+    hist = np.zeros((c, 256), np.int64)
+    for i in range(c):
+        hist_raw = np.bincount(arr_u8[i].reshape(-1), minlength=256)
+        np.add.at(hist[i], lut[i].astype(np.int64), hist_raw)
+    return lut, params, hist.astype(np.int32)

@@ -1,0 +1,195 @@
+"""The supervised turbo path: raw uint8 scenes -> 19-channel channel-major
+stack -> forest labels, over a written-out batch dimension.
+
+Counterpart of ``rs_image_segmentation_tpu.pipeline.turbo``
+(``classify_scenes_turbo`` and the functions it runs). Every percentile
+comes from a 256-bin int32 histogram (no sort), imagery stays (B, C, H, W)
+channel-major, and every reduction of the JAX program's per-scene ``vmap``
+(percentiles, the PCA Gram, the Sobel maximum) stays per scene. Two CUDA
+kernels carry the path: ``ops.kernels.lut_hist`` (the preamble) and
+``ops.kernels.forest_labels`` (the forest); on CPU tensors each runs its
+plain PyTorch version.
+
+Numerics follow the JAX program op for op in f32, so on the CPU features
+match it to ~1e-6 and class maps to > 99.9 %; only summation orders
+(matmuls, reductions) differ.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..backend import DeviceLike, resolve_device
+from ..core.config import FeatureStageConfig
+from ..models.forest import GemmForest
+from ..ops.indices import spectral_indices
+from ..ops.kernels import (apply_u8_lut, forest_labels, gemm_labels_cm,
+                           histogram256, lut_hist)
+from ..ops.morphology import gradient
+from ..ops.stencil import box_filter, sobel_magnitude
+from ..ops.texture import glcm_feature_maps
+
+__all__ = ["apply_u8_lut", "histogram256", "percentiles_from_counts",
+           "hierarchical_stack_turbo_cm", "gemm_labels_cm",
+           "classify_scenes_turbo"]
+
+
+# ------------------------------------------------------------ primitives
+
+def _on(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` (numpy array or tensor) as a contiguous ``dtype`` tensor on
+    ``device``."""
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
+    return t.to(device=device, dtype=dtype).contiguous()
+
+
+def percentiles_from_counts(counts: torch.Tensor, values: torch.Tensor,
+                            qs: Sequence[float], n: int) -> torch.Tensor:
+    """np.percentile(method='linear') over per-band value multisets.
+
+    counts: (..., 256) integer counts; values: (..., 256) ASCENDING f32
+    values; qs: percentiles; n: total count per row. Returns (len(qs),
+    ...). Interpolation form v_lo*(1-frac) + v_hi*frac in f32; ranks
+    compare as exact int32."""
+    cum = torch.cumsum(counts.to(torch.int32), dim=-1, dtype=torch.int32)
+    out = []
+    for q in qs:
+        pos = q / 100.0 * (n - 1)
+        lo = math.floor(pos)
+        hi = math.ceil(pos)
+        frac = np.float32(pos - lo)
+        idx_lo = torch.sum((cum < lo + 1).to(torch.int32), dim=-1)
+        idx_hi = torch.sum((cum < hi + 1).to(torch.int32), dim=-1)
+        v_lo = torch.gather(values, -1, idx_lo[..., None])[..., 0]
+        v_hi = torch.gather(values, -1, idx_hi[..., None])[..., 0]
+        out.append(v_lo * float(np.float32(1.0) - frac) + v_hi * float(frac))
+    return torch.stack(out)
+
+
+# ------------------------------------------------------- feature stack
+
+def _preamble(scene_u8: torch.Tensor, stretch_lut_u8: torch.Tensor,
+              sp=None, hist=None):
+    """Stretch LUT + histogram through kernel 1 (``ops.kernels.lut_hist``).
+    With both ``sp`` and a host-precomputed ``hist`` (build_stretch_stats,
+    exact) the kernel skips histogram accumulation."""
+    if hist is not None and sp is not None:
+        return lut_hist(scene_u8, stretch_lut_u8, sp=sp, skip_hist=True), hist
+    return lut_hist(scene_u8, stretch_lut_u8, sp=sp)
+
+
+def _stack_cm_from_parts(stretched_f32: torch.Tensor, hist: torch.Tensor,
+                         cfg: FeatureStageConfig) -> torch.Tensor:
+    """(B, 7, H, W) stretched scenes (f32 holding exact uint8 levels) and
+    their (B, 7, 256) histograms -> (B, 19, H, W) stacks. Channel order: 7
+    level-1 (ndwi, mndwi, ndvi, evi, ndbi, bsi, pc1), their 7 box-filter
+    context planes, then 5 level-2 (GLCM contrast, homogeneity, grad5,
+    std5, Sobel magnitude)."""
+    b, c, h, w = stretched_f32.shape
+    n = h * w
+    eps = cfg.normalize.epsilon
+    dev = stretched_f32.device
+    vals = torch.arange(256, dtype=torch.float32, device=dev).expand(b, c, 256)
+    p = percentiles_from_counts(hist, vals,
+                                (cfg.normalize.lower_percentile,
+                                 cfg.normalize.upper_percentile), n)
+    lo, hi = p[0][..., None, None], p[1][..., None, None]
+    x = stretched_f32
+    bands01 = (torch.clamp(x, lo, hi) - lo) / (hi - lo + eps)
+    # per-level normalized values (for histogram-space stats downstream)
+    norm_vals = ((torch.clamp(vals, p[0][..., None], p[1][..., None])
+                  - p[0][..., None])
+                 / (p[1][..., None] - p[0][..., None] + eps))  # (B, 7, 256)
+
+    idx = spectral_indices(bands01)
+
+    # --- PCA: RobustScaler stats from the histogram, f32 Gram, eigh ------
+    q = percentiles_from_counts(hist, norm_vals, (25.0, 50.0, 75.0), n)
+    iqr = q[2] - q[0]
+    scale = torch.where(iqr > 0, iqr, 1.0)
+    xs = (bands01 - q[1][..., None, None]) / scale[..., None, None]
+    xs_vals = (norm_vals - q[1][..., None]) / scale[..., None]
+    mean = torch.sum(hist.to(torch.float32) * xs_vals, dim=-1) / n  # (B, 7)
+    xc = xs - mean[..., None, None]
+    flat = xc.reshape(b, c, n)
+    cov = torch.bmm(flat, flat.transpose(1, 2)) / (n - 1)
+    eigvals, eigvecs = torch.linalg.eigh(cov)
+    top = torch.argmax(eigvals, dim=-1)                      # (B,)
+    comp0 = torch.gather(eigvecs, 2, top[:, None, None].expand(b, c, 1))[..., 0]
+    peak = torch.argmax(torch.abs(comp0), dim=-1, keepdim=True)
+    sign = torch.sign(torch.gather(comp0, 1, peak))          # svd_flip
+    comp0 = comp0 * torch.where(sign == 0, 1.0, sign)
+    pc1 = torch.einsum("bc,bchw->bhw", comp0, xc)
+
+    # --- texture branch (NIR by default) ---------------------------------
+    tb = cfg.texture_band_index
+    tq = percentiles_from_counts(hist[:, tb], norm_vals[:, tb],
+                                 (cfg.normalize.lower_percentile,
+                                  cfg.normalize.upper_percentile), n)
+    tlo, thi = tq[0][:, None, None], tq[1][:, None, None]    # (B, 1, 1)
+    tex01 = (torch.clamp(bands01[:, tb], tlo, thi) - tlo) / (thi - tlo + eps)
+
+    glcm = glcm_feature_maps(tex01, cfg.glcm.levels, cfg.glcm.window_size,
+                             cfg.glcm.step_size, cfg.glcm.distances,
+                             cfg.glcm.angles)
+    u8t = (tex01 * 255.0).to(torch.uint8)
+    grad5 = gradient(u8t, 5).to(torch.float32) / 255.0
+    mean5 = box_filter(tex01, 5)
+    std5 = torch.sqrt(torch.clamp_min(box_filter(tex01 * tex01, 5)
+                                      - mean5 * mean5, 0.0))
+    smag = sobel_magnitude(u8t.to(torch.float32)) / 255.0
+    smag = smag / (torch.amax(smag, dim=(-2, -1), keepdim=True) + 1e-10)
+
+    level_1 = torch.stack([idx["ndwi"], idx["mndwi"], idx["ndvi"],
+                           idx["evi"], idx["ndbi"], idx["bsi"], pc1],
+                          dim=1)                             # (B, 7, H, W)
+    ctx = box_filter(level_1, cfg.context.window_size, border="reflect")
+    level_2 = torch.stack([glcm["contrast"], glcm["homogeneity"], grad5,
+                           std5, smag], dim=1)               # (B, 5, H, W)
+    return torch.cat([level_1, ctx, level_2], dim=1)         # (B, 19, H, W)
+
+
+def hierarchical_stack_turbo_cm(scene_u8, stretch_lut_u8,
+                                cfg: FeatureStageConfig = FeatureStageConfig(),
+                                device: DeviceLike = None) -> torch.Tensor:
+    """(7, H, W) or (B, 7, H, W) RAW uint8 scene(s) + matching (..., 7,
+    256) exact stretch LUTs (``pipeline.preprocess.build_stretch_lut``) ->
+    (..., 19, H, W) f32 stack on ``device`` (CUDA unless named)."""
+    dev = resolve_device(device)
+    scene = _on(scene_u8, dev, torch.uint8)
+    lut = _on(stretch_lut_u8, dev, torch.uint8)
+    single = scene.dim() == 3
+    if single:
+        scene, lut = scene[None], lut[None]
+    stack = _stack_cm_from_parts(*_preamble(scene, lut), cfg)
+    return stack[0] if single else stack
+
+
+# ---------------------------------------------------------- full program
+
+def classify_scenes_turbo(scenes_u8, stretch_luts_u8, gf: GemmForest,
+                          cfg: FeatureStageConfig = FeatureStageConfig(),
+                          stretch_params=None, stretch_hists=None,
+                          device: DeviceLike = None) -> torch.Tensor:
+    """(B, 7, H, W) raw uint8 scenes + (B, 7, 256) stretch LUTs -> (B, H, W)
+    uint8 class maps on ``device`` (CUDA unless named): preamble, 19-channel
+    stack and forest labels over the whole batch (one launch of each
+    kernel). ``stretch_params``: optional (B, 7, 3+2K) int32 fixed-point
+    stretch params (build_stretch_params). ``stretch_hists``: optional
+    (B, 7, 256) int32 host-precomputed stretched-value histograms
+    (build_stretch_stats); with both, the preamble skips its histogram."""
+    dev = resolve_device(device)
+    scenes = _on(scenes_u8, dev, torch.uint8)
+    luts = _on(stretch_luts_u8, dev, torch.uint8)
+    sp = (None if stretch_params is None
+          else _on(stretch_params, dev, torch.int32))
+    hh = (None if stretch_hists is None or sp is None
+          else _on(stretch_hists, dev, torch.int32))
+    b, _, h, w = scenes.shape
+    stacks = _stack_cm_from_parts(*_preamble(scenes, luts, sp, hh), cfg)
+    labels = forest_labels(gf, stacks.reshape(b, stacks.shape[1], h * w))
+    return labels.reshape(b, h, w).to(torch.uint8)

@@ -1,0 +1,118 @@
+"""Synthetic 7-band uint8 scenes, and a forest fitted on them, for tests
+and smoke runs (numpy only).
+
+Each band is a smoothed random field: a coarse field shared by all bands
+of a scene (so bands correlate, as land cover makes them), plus a finer
+field of the band's own, stretched to the band's DN range. Band
+``FULL_RANGE_BAND`` spans exactly 0..255, so ``build_stretch_params``
+sends it to the table route (mode 0); the other bands span narrower
+ranges and take the fixed-point route (mode 1).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..core.config import CalibrationConfig, ForestConfig
+from ..models.forest import _gemm_for, fit_random_forest, forest_tree_plan
+from ..pipeline.preprocess import build_stretch_params, build_stretch_stats
+
+FULL_RANGE_BAND = 4
+
+
+def _box(a: np.ndarray, k: int, axis: int) -> np.ndarray:
+    """Running mean of width ``k`` along ``axis`` with reflected borders."""
+    pad = [(0, 0)] * a.ndim
+    pad[axis] = (k // 2, k - 1 - k // 2)
+    c = np.cumsum(np.pad(a, pad, mode="reflect"), axis=axis)
+    c = np.concatenate([np.zeros_like(c.take([0], axis=axis)), c], axis=axis)
+    n = a.shape[axis]
+    return (c.take(np.arange(k, n + k), axis=axis)
+            - c.take(np.arange(n), axis=axis)) / k
+
+
+def _smooth(a: np.ndarray, k: int) -> np.ndarray:
+    for _ in range(2):                      # two box passes ~ a Gaussian
+        a = _box(_box(a, k, 0), k, 1)
+    return a
+
+
+def synthetic_scenes(batch: int, h: int, w: int, seed: int = 0
+                     ) -> np.ndarray:
+    """(batch, 7, h, w) uint8 scenes from ``seed``; the narrow bands' DN
+    ranges are drawn until the default calibration sends them to mode 1."""
+    calibration = CalibrationConfig()
+    gains = np.asarray(calibration.gains)
+    biases = np.asarray(calibration.biases)
+    bands = len(gains)
+    rng = np.random.default_rng(seed)
+    out = np.empty((batch, bands, h, w), np.uint8)
+    coarse_k = max(3, min(h, w) // 12)
+    for b in range(batch):
+        base = _smooth(rng.standard_normal((h, w)), coarse_k)
+        base /= base.std() + 1e-12
+        for c in range(bands):
+            own = _smooth(rng.standard_normal((h, w)), 5)
+            own /= own.std() + 1e-12
+            f = ((1.0 - 0.1 * c) * base + (0.3 + 0.1 * c) * own
+                 + 0.05 * rng.standard_normal((h, w)))
+            f = (f - f.min()) / (f.max() - f.min())
+            if c == FULL_RANGE_BAND:
+                out[b, c] = np.round(f * 255.0).astype(np.uint8)
+                continue
+            # draw narrow ranges until the band takes the fixed-point route
+            for _ in range(100):
+                lo = int(rng.integers(10, 40))
+                hi = int(rng.integers(150, 230))
+                out[b, c] = np.round(lo + f * (hi - lo)).astype(np.uint8)
+                _, sp = build_stretch_params(out[b, c:c + 1], gains[c:c + 1],
+                                             biases[c:c + 1])
+                if sp[0, 0] == 1:
+                    break
+    return out
+
+
+def stretch_stats_batch(scenes: np.ndarray):
+    """``build_stretch_stats`` of each scene of a (B, 7, H, W) uint8 batch
+    under the default calibration, stacked: ``(luts (B, 7, 256) uint8,
+    params (B, 7, 3 + 2K) int32, hists (B, 7, 256) int32)``."""
+    calibration = CalibrationConfig()
+    stats = [build_stretch_stats(s, np.asarray(calibration.gains),
+                                 np.asarray(calibration.biases))
+             for s in scenes]
+    luts, params, hists = (np.stack(part) for part in zip(*stats))
+    return luts.astype(np.uint8), params, hists
+
+
+def rule_labels(stack: np.ndarray, pick: np.ndarray) -> np.ndarray:
+    """Classes 1..4 of the sampled pixels ``pick`` of a (19, H, W) stack:
+    above or below the samples' median NDVI (channel 2) and median NDWI
+    (channel 0)."""
+    flat = stack.reshape(stack.shape[0], -1)
+    ndvi, ndwi = flat[2, pick], flat[0, pick]
+    return 1 + (ndvi > np.median(ndvi)) + 2 * (ndwi > np.median(ndwi))
+
+
+SAMPLE_COUNTS = (33, 48, 64, 96, 128, 192, 256, 384)
+
+
+def rule_forest(stack: np.ndarray):
+    """A forest of ``ForestConfig()`` (100 trees, seed 42) fitted by the
+    port's trainer on :func:`rule_labels` of random pixels of ``stack``,
+    with the fewest samples in SAMPLE_COUNTS (33 is the bundled sample
+    set's size) whose GemmForest has a tree plan, i.e. the bundled model's
+    scale. Returns ``(gemm_forest, plan, n_samples, max_depth)``."""
+    cfg = ForestConfig()
+    flat = stack.reshape(stack.shape[0], -1)
+    rng = np.random.default_rng(cfg.seed)
+    for n in SAMPLE_COUNTS:
+        pick = rng.choice(flat.shape[1], n, replace=False)
+        forest, depth = fit_random_forest(flat[:, pick].T,
+                                          rule_labels(stack, pick),
+                                          n_estimators=cfg.n_estimators,
+                                          seed=cfg.seed)
+        gf = _gemm_for(forest, flat.shape[0])
+        plan = forest_tree_plan(gf)
+        if plan is not None:
+            return gf, plan, n, depth
+    raise RuntimeError("no sample count gave a forest with a tree plan")
