@@ -6,6 +6,12 @@ version.
   histogram of the stretched values.
 * ``forest_labels`` (``csrc/forest_labels.cu``) replaces
   ``forest_labels_pallas``: GemmForest labels over channel-major features.
+* ``ccmin_prop`` (``csrc/ccmin_prop.cu``) replaces ``ccmin_prop_pallas``:
+  the per-component minimum of int32 values over the connected components
+  of each mask of a stack.
+* ``hist_dense`` and ``keep_lut`` (``csrc/hist_keep.cu``) replace
+  ``hist_dense_pallas`` and ``keep_lut_pallas``: per-mask counts of dense
+  ids, and the keep bit of each pixel's id.
 
 A wrapper takes its plain version only for a tensor on the CPU. For a CUDA
 tensor it launches the kernel on the current stream or raises; nothing
@@ -19,6 +25,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
@@ -284,3 +291,202 @@ def forest_labels(gf, x_cm: torch.Tensor) -> torch.Tensor:
 
 
 forest_labels.launches = 0
+
+
+# -------------------------------------------------------------- ccmin_prop
+
+_I32_MAX = torch.iinfo(torch.int32).max
+
+
+def _stack3(x: torch.Tensor) -> torch.Tensor:
+    return x if x.dim() == 3 else x[None]
+
+
+def _seg_min(lab: torch.Tensor, fg: torch.Tensor, run_id: torch.Tensor,
+             n_runs: int, big: int) -> torch.Tensor:
+    """Min of ``lab`` over each foreground run, given every pixel's run id
+    (flat); background reads and gets ``big``."""
+    run_min = torch.full((n_runs,), big, dtype=lab.dtype, device=lab.device)
+    run_min.scatter_reduce_(0, run_id, torch.where(fg, lab, big).reshape(-1),
+                            "amin")
+    return torch.where(fg, run_min[run_id].reshape(lab.shape), big)
+
+
+def _run_ids(fg: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """Flat id of the foreground run along the last dim that holds each
+    pixel (background pixels share their row's preceding id), and the
+    number of ids."""
+    starts = fg & ~F.pad(fg[..., :-1], (1, 0))
+    ids = torch.cumsum(starts.reshape(-1), 0)
+    return ids, int(ids[-1]) + 1
+
+
+def _cc_labels_plain(fg: torch.Tensor, connectivity: int = 8
+                    ) -> torch.Tensor:
+    """(M, H, W) bool -> int64 labels: each foreground pixel carries the
+    minimum flat index of its component, background carries M*H*W. The
+    JAX package's XLA scheme (``ops.components.connected_components``),
+    batched over M with no adjacency across masks: per round, a neighbour
+    min, a min over each row run and each column run, and one pointer
+    jump, until nothing changes."""
+    m, h, w = fg.shape
+    n = m * h * w
+    big = n
+    row_id, n_row = _run_ids(fg)
+    col_id, n_col = _run_ids(fg.transpose(1, 2).contiguous())
+    col_id = col_id.reshape(m, w, h).transpose(1, 2).reshape(-1)
+    idx = torch.arange(n, device=fg.device).reshape(m, h, w)
+    lab = torch.where(fg, idx, big)
+    while True:
+        p = F.pad(lab, (1, 1, 1, 1), value=big)
+        nm = torch.minimum(lab, p[:, :h, 1:1 + w])
+        for dy, dx in ((2, 1), (1, 0), (1, 2)):
+            nm = torch.minimum(nm, p[:, dy:dy + h, dx:dx + w])
+        if connectivity == 8:
+            for dy, dx in ((0, 0), (0, 2), (2, 0), (2, 2)):
+                nm = torch.minimum(nm, p[:, dy:dy + h, dx:dx + w])
+        nm = _seg_min(nm, fg, col_id, n_col, big)
+        nm = _seg_min(nm, fg, row_id, n_row, big)
+        flat = nm.reshape(-1)
+        jumped = torch.cat([flat, flat.new_full((1,), big)])[flat]
+        new = torch.minimum(nm, jumped.reshape(m, h, w))
+        if torch.equal(new, lab):
+            return lab
+        lab = new
+
+
+def ccmin_prop_plain(mask: torch.Tensor, values: torch.Tensor,
+                     connectivity: int = 8) -> torch.Tensor:
+    """Plain version of :func:`ccmin_prop`: the labels of
+    :func:`_cc_labels_plain`, then a per-label ``scatter_reduce`` min of
+    ``values`` and a gather."""
+    fg = _stack3(mask) != 0
+    lab = _cc_labels_plain(fg, connectivity).reshape(-1)
+    vmin = torch.full((fg.numel() + 1,), _I32_MAX, dtype=torch.int32,
+                      device=fg.device)
+    vmin.scatter_reduce_(0, lab, _stack3(values).reshape(-1), "amin")
+    out = torch.where(fg, vmin[lab].reshape(fg.shape), -1)
+    return out if mask.dim() == 3 else out[0]
+
+
+def ccmin_prop(mask: torch.Tensor, values: torch.Tensor,
+               connectivity: int = 8) -> torch.Tensor:
+    """Per-component minimum of ``values`` over the ``connectivity`` (8 or
+    4) connected components of each mask: ``(M, H, W)`` or ``(H, W)`` uint8
+    or bool ``mask`` (nonzero = foreground) and int32 ``values`` of the
+    same shape -> int32, each foreground pixel holding min(values over its
+    component) and background -1. Components never cross masks.
+
+    The kernel is union-find and always runs to the exact result, so the
+    JAX function's round bounds ``max_outer`` and ``n_inner`` have no
+    counterpart. Its ``dtype``, ``coarse``, ``cache_masks`` and ``sweep``
+    only chose a TPU schedule (label width, seeding, VMEM use, sweep
+    order) with the same result, so they are left out too."""
+    _require(mask.dim() in (2, 3) and mask.dtype in (torch.uint8, torch.bool),
+             "mask must be a (H, W) or (M, H, W) uint8 or bool tensor")
+    _require(values.dtype == torch.int32 and values.shape == mask.shape,
+             "values must be int32 of the mask's shape")
+    _require(connectivity in (8, 4), "connectivity must be 8 or 4")
+    if mask.device.type == "cpu":
+        return ccmin_prop_plain(mask, values, connectivity)
+    _require_cuda(mask, values)
+    m, h, w = _stack3(mask).shape
+    _require(m * h * w < 2 ** 31 and m <= 65535,
+             "the kernel takes fewer than 2**31 pixels and 65535 masks")
+    out = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
+    minv = torch.empty_like(out)
+    _call("ccmin_prop", "ccmin_prop_launch",
+          [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+           ctypes.c_int, _P],
+          mask.data_ptr(), values.data_ptr(), out.data_ptr(), minv.data_ptr(),
+          m, h, w, connectivity, _stream(mask.device))
+    ccmin_prop.launches += 1
+    return out
+
+
+ccmin_prop.launches = 0
+
+
+# ------------------------------------------------------ hist_dense, keep_lut
+
+HIST_LO = 128       # an id splits as (id // 128, id % 128) in the layouts
+
+
+def _ids_2d(ids: torch.Tensor) -> torch.Tensor:
+    _require(ids.dtype == torch.int32 and ids.dim() >= 2,
+             "ids must be an int32 tensor of shape (M, ...)")
+    return ids.reshape(ids.shape[0], -1)
+
+
+def hist_dense_plain(ids: torch.Tensor, bins_hi: int) -> torch.Tensor:
+    """Plain version of :func:`hist_dense`: a masked ``bincount`` per
+    mask."""
+    flat = _ids_2d(ids)
+    bins = bins_hi * HIST_LO
+    rows = [torch.bincount(r[(r >= 0) & (r < bins)], minlength=bins)
+            for r in flat]
+    return torch.stack(rows).to(torch.int32).reshape(-1, bins_hi, HIST_LO)
+
+
+def hist_dense(ids: torch.Tensor, bins_hi: int) -> torch.Tensor:
+    """``(M, ...)`` int32 ids -> ``(M, bins_hi, 128)`` int32 exact counts
+    per mask of each id in ``[0, bins_hi * 128)``; other ids are not
+    counted. The JAX kernel returns f32 counts (MXU sums); int32 keeps them
+    exact integers for the ``counts >= min_areas`` comparison they feed."""
+    flat = _ids_2d(ids)
+    _require(bins_hi >= 1, "bins_hi must be positive")
+    if ids.device.type == "cpu":
+        return hist_dense_plain(ids, bins_hi)
+    _require_cuda(ids)
+    m, n = flat.shape
+    counts = torch.zeros((m, bins_hi, HIST_LO), dtype=torch.int32,
+                         device=ids.device)
+    _call("hist_keep", "hist_dense_launch",
+          [_P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P],
+          flat.data_ptr(), counts.data_ptr(), m, n, bins_hi * HIST_LO,
+          _stream(ids.device))
+    hist_dense.launches += 1
+    return counts
+
+
+hist_dense.launches = 0
+
+
+def _check_table(ids: torch.Tensor, keep: torch.Tensor) -> None:
+    _require(keep.dtype == torch.bool and keep.dim() == 3
+             and keep.shape[0] == ids.shape[0] and keep.shape[2] == HIST_LO,
+             "keep must be a bool (M, bins_hi, 128) table")
+
+
+def keep_lut_plain(ids: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`keep_lut`: a masked gather."""
+    flat = _ids_2d(ids)
+    _check_table(ids, keep)
+    table = keep.reshape(keep.shape[0], -1)
+    bins = table.shape[1]
+    valid = (flat >= 0) & (flat < bins)
+    bit = torch.gather(table, 1, torch.where(valid, flat, 0).long())
+    return (bit & valid).to(torch.int32).reshape(ids.shape)
+
+
+def keep_lut(ids: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """``(M, ...)`` int32 ids + ``(M, bins_hi, 128)`` bool keep table ->
+    int32 keep bits of the ids' shape; ids outside ``[0, bins_hi * 128)``
+    read 0. The table is indexed ``[id // 128, id % 128]``: the JAX kernel
+    took its transpose, an MXU layout."""
+    flat = _ids_2d(ids)
+    _check_table(ids, keep)
+    if ids.device.type == "cpu":
+        return keep_lut_plain(ids, keep)
+    _require_cuda(ids, keep)
+    m, n = flat.shape
+    out = torch.empty(ids.shape, dtype=torch.int32, device=ids.device)
+    _call("hist_keep", "keep_lut_launch",
+          [_P, _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P],
+          flat.data_ptr(), keep.data_ptr(), out.data_ptr(), m, n,
+          keep.shape[1] * HIST_LO, _stream(ids.device))
+    keep_lut.launches += 1
+    return out
+
+
+keep_lut.launches = 0

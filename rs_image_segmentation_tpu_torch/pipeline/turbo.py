@@ -1,14 +1,18 @@
-"""The supervised turbo path: raw uint8 scenes -> 19-channel channel-major
-stack -> forest labels, over a written-out batch dimension.
+"""The turbo programs over a written-out batch dimension: the supervised
+path (raw uint8 scenes -> 19-channel channel-major stack -> forest labels)
+and the batched rule program.
 
 Counterpart of ``rs_image_segmentation_tpu.pipeline.turbo``
-(``classify_scenes_turbo`` and the functions it runs). Every percentile
+(``classify_scenes_turbo``, ``rule_based_scenes_turbo_batch`` and the
+functions they run). Every percentile
 comes from a 256-bin int32 histogram (no sort), imagery stays (B, C, H, W)
 channel-major, and every reduction of the JAX program's per-scene ``vmap``
 (percentiles, the PCA Gram, the Sobel maximum) stays per scene. Two CUDA
 kernels carry the path: ``ops.kernels.lut_hist`` (the preamble) and
 ``ops.kernels.forest_labels`` (the forest); on CPU tensors each runs its
-plain PyTorch version.
+plain PyTorch version. The rule program shares the preamble and removes
+small components through ``ops.components.remove_small_components_batch``
+(CUDA kernels ``ccmin_prop``, ``hist_dense`` and ``keep_lut``).
 
 Numerics follow the JAX program op for op in f32, so on the CPU features
 match it to ~1e-6 and class maps to > 99.9 %; only summation orders
@@ -24,18 +28,20 @@ import numpy as np
 import torch
 
 from ..backend import DeviceLike, resolve_device
-from ..core.config import FeatureStageConfig
+from ..core.config import FeatureStageConfig, RuleBasedConfig
 from ..models.forest import GemmForest
-from ..ops.indices import spectral_indices
+from ..ops.components import remove_small_components_batch
+from ..ops.indices import mndwi, ndbi, ndvi, ndwi, spectral_indices
 from ..ops.kernels import (apply_u8_lut, forest_labels, gemm_labels_cm,
                            histogram256, lut_hist)
-from ..ops.morphology import gradient
+from ..ops.morphology import closing, gradient, opening
 from ..ops.stencil import box_filter, sobel_magnitude
 from ..ops.texture import glcm_feature_maps
+from ..ops.threshold import threshold_binary
 
 __all__ = ["apply_u8_lut", "histogram256", "percentiles_from_counts",
            "hierarchical_stack_turbo_cm", "gemm_labels_cm",
-           "classify_scenes_turbo"]
+           "classify_scenes_turbo", "rule_based_scenes_turbo_batch"]
 
 
 # ------------------------------------------------------------ primitives
@@ -171,6 +177,20 @@ def hierarchical_stack_turbo_cm(scene_u8, stretch_lut_u8,
 
 # ---------------------------------------------------------- full program
 
+def _batch_inputs(scenes_u8, stretch_luts_u8, stretch_params, stretch_hists,
+                  device: DeviceLike):
+    """A program's inputs on its device: scenes, LUTs, and the optional
+    stretch params and host histograms (the histograms only with the
+    params, as the preamble uses them)."""
+    dev = resolve_device(device)
+    sp = (None if stretch_params is None
+          else _on(stretch_params, dev, torch.int32))
+    hh = (None if stretch_hists is None or sp is None
+          else _on(stretch_hists, dev, torch.int32))
+    return (_on(scenes_u8, dev, torch.uint8),
+            _on(stretch_luts_u8, dev, torch.uint8), sp, hh)
+
+
 def classify_scenes_turbo(scenes_u8, stretch_luts_u8, gf: GemmForest,
                           cfg: FeatureStageConfig = FeatureStageConfig(),
                           stretch_params=None, stretch_hists=None,
@@ -182,14 +202,125 @@ def classify_scenes_turbo(scenes_u8, stretch_luts_u8, gf: GemmForest,
     stretch params (build_stretch_params). ``stretch_hists``: optional
     (B, 7, 256) int32 host-precomputed stretched-value histograms
     (build_stretch_stats); with both, the preamble skips its histogram."""
-    dev = resolve_device(device)
-    scenes = _on(scenes_u8, dev, torch.uint8)
-    luts = _on(stretch_luts_u8, dev, torch.uint8)
-    sp = (None if stretch_params is None
-          else _on(stretch_params, dev, torch.int32))
-    hh = (None if stretch_hists is None or sp is None
-          else _on(stretch_hists, dev, torch.int32))
+    scenes, luts, sp, hh = _batch_inputs(scenes_u8, stretch_luts_u8,
+                                         stretch_params, stretch_hists,
+                                         device)
     b, _, h, w = scenes.shape
     stacks = _stack_cm_from_parts(*_preamble(scenes, luts, sp, hh), cfg)
     labels = forest_labels(gf, stacks.reshape(b, stacks.shape[1], h * w))
     return labels.reshape(b, h, w).to(torch.uint8)
+
+
+# ------------------------------------------------------ batched rule program
+
+def _rule_front(scenes_u8: torch.Tensor, stretch_luts_u8: torch.Tensor,
+                cfg: FeatureStageConfig, sp=None, hist_in=None):
+    """Preamble, robust normalisation and the four rule indices of a
+    (B, 7, H, W) batch: ``(ndvi, ndwi, mndwi, ndbi)``, each (B, H, W) f32.
+    The rule program never builds the PCA or texture channels."""
+    b, c, h, w = scenes_u8.shape
+    stretched, hist = _preamble(scenes_u8, stretch_luts_u8, sp, hist_in)
+    vals = torch.arange(256, dtype=torch.float32,
+                        device=scenes_u8.device).expand(b, c, 256)
+    p = percentiles_from_counts(hist, vals,
+                                (cfg.normalize.lower_percentile,
+                                 cfg.normalize.upper_percentile), h * w)
+    lo, hi = p[0][..., None, None], p[1][..., None, None]
+    x = ((torch.clamp(stretched, lo, hi) - lo)
+         / (hi - lo + cfg.normalize.epsilon))
+    return (ndvi(x[:, 3], x[:, 2]), ndwi(x[:, 1], x[:, 3]),
+            mndwi(x[:, 1], x[:, 4]), ndbi(x[:, 4], x[:, 3]))
+
+
+def _rule_first_stage(ndvi_b: torch.Tensor, ndwi_b: torch.Tensor,
+                      mndwi_b: torch.Tensor, ndbi_b: torch.Tensor,
+                      rc: RuleBasedConfig):
+    """The thresholded and closed vegetation, water and built-up masks of
+    a batch, stacked (3B, H, W) uint8 in that order, and their (3B,)
+    int32 minimum areas."""
+    b, h, w = ndvi_b.shape
+    area = h * w
+    veg = threshold_binary(ndvi_b, rc.ndvi_threshold)
+    if rc.use_mndwi_if_available:
+        water = threshold_binary(mndwi_b, rc.mndwi_threshold)
+    else:
+        water = threshold_binary(ndwi_b, rc.ndwi_threshold)
+    built = (threshold_binary(ndbi_b, rc.ndbi_threshold).bool()
+             & threshold_binary(ndvi_b, rc.ndvi_threshold_for_builtup,
+                                above=False).bool()).to(torch.uint8)
+    stack3 = torch.cat([closing(veg, 3, shape="ellipse"),
+                        closing(water, 3, shape="ellipse"),
+                        closing(built, 5, shape="ellipse")])
+    min_areas = torch.tensor(
+        [int(area * rc.veg_min_area_frac)] * b
+        + [int(area * rc.water_min_area_frac)] * b
+        + [int(area * rc.builtup_min_area_frac)] * b,
+        dtype=torch.int32, device=ndvi_b.device)
+    return stack3, min_areas
+
+
+def rule_based_scenes_turbo_batch(scenes_u8, stretch_luts_u8,
+                                  cfg: FeatureStageConfig = FeatureStageConfig(),
+                                  rule_cfg: "RuleBasedConfig | None" = None,
+                                  stretch_params=None, stretch_hists=None,
+                                  return_overflow: bool = False,
+                                  device: DeviceLike = None):
+    """Batched rule-based classification: (B, 7, H, W) raw uint8 scenes +
+    (B, 7, 256) stretch LUTs -> (B, H, W) uint8 labels on ``device`` (CUDA
+    unless named): 0 unclassified, 1 vegetation, 2 water, 3 built-up,
+    4 bare land.
+
+    Thresholds give the vegetation, water and built-up masks. Each is
+    closed, cleared of small components in one batched pass over all 3B
+    masks, and opened; they paint built-up, then vegetation, then water.
+    Bare land comes from the unclassified remainder the same way, in a
+    second pass over B masks. ``stretch_params`` and ``stretch_hists`` are
+    as in :func:`classify_scenes_turbo`.
+
+    Component ids are capped at 32768 per mask
+    (``ops.components.remove_small_components_batch``). With
+    ``return_overflow=True`` it also returns a (B,) bool marking the scenes
+    where any of their four masks hit the cap, whose output may have
+    dropped a large component; callers reroute those scenes to a path
+    without the cap."""
+    scenes, luts, sp, hh = _batch_inputs(scenes_u8, stretch_luts_u8,
+                                         stretch_params, stretch_hists,
+                                         device)
+    out, overflow = _rule_labels(*_rule_front(scenes, luts, cfg, sp, hh),
+                                 rule_cfg if rule_cfg is not None
+                                 else RuleBasedConfig())
+    return (out, overflow) if return_overflow else out
+
+
+def _rule_labels(ndvi_b: torch.Tensor, ndwi_b: torch.Tensor,
+                 mndwi_b: torch.Tensor, ndbi_b: torch.Tensor,
+                 rc: RuleBasedConfig):
+    """The rule program after its index planes: (B, H, W) uint8 labels and
+    the (B,) overflow flags."""
+    b, h, w = ndvi_b.shape
+    stack3, min3 = _rule_first_stage(ndvi_b, ndwi_b, mndwi_b, ndbi_b, rc)
+    kept, ov3 = remove_small_components_batch(stack3, min3,
+                                              return_overflow=True)
+    veg = opening(kept[:b], 3, shape="ellipse")
+    water = opening(kept[b:2 * b], 3, shape="ellipse")
+    built = opening(kept[2 * b:], 5, shape="ellipse")
+
+    out = torch.zeros((b, h, w), dtype=torch.uint8, device=ndvi_b.device)
+    out = torch.where(built == 1, 3, out)   # priority paint: built-up,
+    out = torch.where(veg == 1, 1, out)     # then vegetation,
+    out = torch.where(water == 1, 2, out)   # and water wins
+
+    nd_v = torch.nan_to_num(ndvi_b)
+    nd_b = torch.nan_to_num(ndbi_b)
+    bare = ((out == 0)
+            & (nd_v > rc.bareland_ndvi_low) & (nd_v < rc.bareland_ndvi_high)
+            & (nd_b > rc.bareland_ndbi_low) & (nd_b < rc.bareland_ndbi_high)
+            ).to(torch.uint8)
+    bare = closing(bare, 3, shape="ellipse")
+    bare_areas = torch.full((b,), int(h * w * rc.bareland_min_area_frac),
+                            dtype=torch.int32, device=ndvi_b.device)
+    bare, ov_bare = remove_small_components_batch(bare, bare_areas,
+                                                  return_overflow=True)
+    bare = opening(bare, 3, shape="ellipse")
+    out = torch.where((bare == 1) & (out == 0), 4, out)
+    return out, ov3[:b] | ov3[b:2 * b] | ov3[2 * b:] | ov_bare

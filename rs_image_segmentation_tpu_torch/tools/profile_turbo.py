@@ -1,16 +1,19 @@
-"""Where the main path's device time goes, by ``torch.profiler``.
+"""Where a turbo path's device time goes, by ``torch.profiler``.
 
-Runs ``classify_scenes_turbo`` on the ``chip_smoke.py`` inputs (8
-synthetic scenes of 7 x 600 x 600 from seed 0, a 100-tree forest) on one
-CUDA card, profiles one run after a warm-up, and prints the card, the top
-kernels and the top PyTorch ops by device time, the device busy share of
-the run (kernel time over wall time), then one JSON line.
+Runs ``classify_scenes_turbo`` (or, with ``--path rule``,
+``rule_based_scenes_turbo_batch``) on the ``chip_smoke.py`` inputs (8
+synthetic scenes of 7 x 600 x 600 from seed 0, a 100-tree forest for the
+supervised path) on one CUDA card, profiles one run after a warm-up, and
+prints the card, the top kernels and the top PyTorch ops by device time,
+the device busy share of the run (kernel time over wall time), then one
+JSON line.
 
-    python -m rs_image_segmentation_tpu_torch.tools.profile_turbo
+    python -m rs_image_segmentation_tpu_torch.tools.profile_turbo [--path rule]
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -36,7 +39,11 @@ def _total_us(evt) -> float:
 BATCH, SIZE, SEED, TOP = 8, 600, 0, 15
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--path", choices=("supervised", "rule"),
+                        default="supervised")
+    path = parser.parse_args(argv).path
     if not torch.cuda.is_available():
         print("profile_turbo: no CUDA device", file=sys.stderr)
         return 1
@@ -47,7 +54,8 @@ def main() -> int:
     from ..core.config import FeatureStageConfig
     from ..models.forest import GemmForest
     from ..pipeline.turbo import (classify_scenes_turbo,
-                                  hierarchical_stack_turbo_cm)
+                                  hierarchical_stack_turbo_cm,
+                                  rule_based_scenes_turbo_batch)
     from .fixtures import rule_forest, stretch_stats_batch, synthetic_scenes
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -59,15 +67,21 @@ def main() -> int:
     scenes_d, luts_d, params_d, hists_d = (
         torch.from_numpy(a).to(dev)
         for a in (scenes, *stretch_stats_batch(scenes)))
-    stack0 = hierarchical_stack_turbo_cm(scenes_d[0], luts_d[0], cfg,
-                                         device=dev).cpu().numpy()
-    gf_cpu = rule_forest(stack0)[0]
-    gf = GemmForest(*(t.to(dev) for t in gf_cpu))
+    if path == "rule":
+        def run():
+            return rule_based_scenes_turbo_batch(
+                scenes_d, luts_d, cfg, stretch_params=params_d,
+                stretch_hists=hists_d, device=dev)
+    else:
+        stack0 = hierarchical_stack_turbo_cm(scenes_d[0], luts_d[0], cfg,
+                                             device=dev).cpu().numpy()
+        gf_cpu = rule_forest(stack0)[0]
+        gf = GemmForest(*(t.to(dev) for t in gf_cpu))
 
-    def run():
-        return classify_scenes_turbo(scenes_d, luts_d, gf, cfg,
-                                     stretch_params=params_d,
-                                     stretch_hists=hists_d, device=dev)
+        def run():
+            return classify_scenes_turbo(scenes_d, luts_d, gf, cfg,
+                                         stretch_params=params_d,
+                                         stretch_hists=hists_d, device=dev)
 
     for _ in range(2):
         run()
@@ -88,7 +102,7 @@ def main() -> int:
     if busy_us <= 0:
         raise RuntimeError("the profile holds no device time")
 
-    print(f"card: {smi}")
+    print(f"card: {smi}; path: {path}")
     print(f"one run: wall {wall_us / 1e3:.3f} ms, kernels {busy_us / 1e3:.3f} "
           f"ms, busy share {busy_us / wall_us:.3f}, "
           f"{len(kern)} distinct kernels, "
@@ -100,7 +114,7 @@ def main() -> int:
     for e in sorted(aten_ops, key=_total_us, reverse=True)[:TOP]:
         print(f"  {_total_us(e) / 1e3:9.3f} {e.count:5d}  {e.key}")
     print(json.dumps({
-        "card": smi, "wall_ms": wall_us / 1e3, "kernel_ms": busy_us / 1e3,
+        "card": smi, "path": path, "wall_ms": wall_us / 1e3, "kernel_ms": busy_us / 1e3,
         "busy_share": busy_us / wall_us,
         "launches": sum(e.count for e in kern),
         "top_kernels": [[e.key[:100], _device_us(e) / 1e3, e.count]
