@@ -1,6 +1,8 @@
-"""GPU smoke run of the PyTorch port's two paths on an 8-scene
-7 x 600 x 600 batch, on one CUDA card: the supervised turbo classifier
-(19 channels, a 100-tree forest) and the batched rule program.
+"""GPU smoke run of the PyTorch port's three paths on one CUDA card: the
+supervised turbo classifier (19 channels, a 100-tree forest) and the
+batched rule program on an 8-scene 7 x 600 x 600 batch, and the
+single-scene rule program with its uncapped large-scene route on one
+7 x 600 x 600 scene, a noise scene and one 7 x 6000 x 6000 scene.
 
 Phases, in order; any failed check raises and the script exits non-zero:
   1. the card (nvidia-smi name and power limit); build every CUDA kernel
@@ -21,8 +23,25 @@ Phases, in order; any failed check raises and the script exits non-zero:
   8. the rule path, ``rule_based_scenes_turbo_batch``, with launch counts
      read around one run, class histogram and overflow flags, then timed
      by stage; scene 0 again on the CPU (>= 99.9 % agreement);
-  9. the rule kernels' numbers; the card's line, the kernels' JSON line,
-     then the result line.
+  9. the rule kernels' numbers;
+ 10. ``cc_labels`` against its plain version on the card, bit-equal: the
+     four masks scene 0's single-scene graph hands to
+     ``connected_components_best``, speckle, a spiral, a serpentine, empty
+     and full masks, a wide striped mask, a stack of four masks (also
+     against each mask on its own), and the four masks of the
+     6000 x 6000 scene, at both connectivities; and ``cc_labels`` against
+     ``ccmin_prop`` over flat indices;
+ 11. the single-scene rule program, ``rule_based_scenes_turbo``, on scene
+     0 with launch counts read around one run, bit-equal to the batched
+     program's scene 0, timed, then by stage; scene 0 again on the CPU
+     (>= 99.9 % agreement);
+ 12. the uncapped route, ``rule_based_large_scene``: (a) a uniform-noise
+     scene that the batched program flags for its id cap, on the card and
+     on the CPU (>= 99.9 % agreement) and against the single-scene
+     program; (b) a 7 x 6000 x 6000 scene (a reflected tiling of scene
+     0), bit-equal to the single-scene program, timed, with its peak
+     device memory; then the ``cc_labels`` numbers at both sizes, the
+     card's line, the kernels' JSON line and the result line.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs no
 network and no arguments; the kernel build goes to
@@ -50,6 +69,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 F32_OPS_PER_S = 67e12              # H100 SXM, f32 outside the tensor cores
 INT32_OPS_PER_S = 33.5e12          # H100 SXM, int32 (half the f32 rate)
 BINS = 32768                       # the rule path's component-id cap
+LARGE = 6000                       # the large scene's height and width
 PALLAS = "rs_image_segmentation_tpu/ops/pallas_kernels.py"
 CSRC = "rs_image_segmentation_tpu_torch/csrc"
 
@@ -107,15 +127,66 @@ def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
                                  else "operations")
 
 
-def serpentine(h: int, w: int) -> np.ndarray:
-    """Every other row set, joined at alternate ends: one component that
-    turns h / 2 times (the mask of the JAX package's structured-mask
-    test)."""
-    m = np.zeros((h, w), bool)
-    m[::2, :] = True
-    m[1::4, -1] = True
-    m[3::4, 0] = True
+def wide_stripes() -> np.ndarray:
+    """130 x 4224: full-width row stripes stitched by columns, with a gap
+    (the JAX package's wide-mask test)."""
+    m = np.zeros((130, 4224), bool)
+    m[::3, :] = True
+    m[:, ::97] = True
+    m[60:70, 1000:3000] = False
     return m
+
+
+def reflected_tiling(scene: np.ndarray, size: int) -> np.ndarray:
+    """A (C, size, size) scene from a (C, h, w) one: the scene and its
+    mirror images in a 2 x 2 block, tiled; continuous across every seam."""
+    block = np.concatenate([np.concatenate([scene, scene[:, :, ::-1]], 2),
+                            np.concatenate([scene[:, ::-1],
+                                            scene[:, ::-1, ::-1]], 2)], 1)
+    reps = (1, -(-size // block.shape[1]), -(-size // block.shape[2]))
+    return np.ascontiguousarray(np.tile(block, reps)[:, :size, :size])
+
+
+def stretch(scene: np.ndarray, lut: np.ndarray) -> np.ndarray:
+    """The stage-1 artifact of a raw (7, H, W) scene: each band through
+    its stretch LUT (host)."""
+    return np.stack([lut[c][scene[c]] for c in range(scene.shape[0])])
+
+
+def graph_cc_masks(run):
+    """``run()``, and the masks it hands to
+    ``ops.components.connected_components_best`` with their
+    connectivities."""
+    from rs_image_segmentation_tpu_torch.ops import components
+    seen = []
+    best = components.connected_components_best
+
+    def spy(mask, connectivity=8, impl="auto"):
+        seen.append((mask.clone(), connectivity))
+        return best(mask, connectivity, impl)
+
+    components.connected_components_best = spy
+    try:
+        out = run()
+    finally:
+        components.connected_components_best = best
+    return out, seen
+
+
+def all_kernels():
+    from rs_image_segmentation_tpu_torch.ops import kernels
+    return (kernels.lut_hist, kernels.forest_labels, kernels.ccmin_prop,
+            kernels.hist_dense, kernels.keep_lut, kernels.cc_labels)
+
+
+def counted(run):
+    """``run()`` with every kernel's launch count set to 0 just before it;
+    returns its result and the counts read just after."""
+    for k in all_kernels():
+        k.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    return out, {k.__name__: k.launches for k in all_kernels()}
 
 
 def ccmin_cases(stack3, seeds, dev):
@@ -125,7 +196,9 @@ def ccmin_cases(stack3, seeds, dev):
     speckle = torch.from_numpy(rng.random((4, HEIGHT, WIDTH)) < 0.5).to(dev)
     speckle_v = torch.from_numpy(rng.integers(
         i32.min, i32.max, speckle.shape, dtype=np.int32)).to(dev)
-    serp = torch.from_numpy(serpentine(300, 140)).to(dev)
+    from rs_image_segmentation_tpu_torch.tools.fixtures import (
+        serpentine_mask)
+    serp = torch.from_numpy(serpentine_mask(300, 140)).to(dev)
     serp_v = torch.from_numpy(rng.integers(
         0, 1 << 20, serp.shape, dtype=np.int32)).to(dev)
     solid = torch.stack([torch.zeros((HEIGHT, WIDTH), dtype=torch.bool),
@@ -205,16 +278,11 @@ def rule_phases(dev, cfg, scenes, luts, params, hists, scenes_d, luts_d,
             scenes_d, luts_d, cfg, stretch_params=params_d,
             stretch_hists=hists_d, return_overflow=True, device=dev)
 
-    path_kernels = (kernels.lut_hist, kernels.ccmin_prop, kernels.hist_dense,
-                    kernels.keep_lut)
-    for k in path_kernels + (kernels.forest_labels,):
-        k.launches = 0
-    labels, overflow = rule_path()
-    torch.cuda.synchronize()
-    launches = {k.__name__: k.launches for k in path_kernels}
-    check(all(v > 0 for v in launches.values())
-          and kernels.forest_labels.launches == 0,
-          f"the rule path's kernels ran, and no forest: {launches}")
+    (labels, overflow), launches = counted(rule_path)
+    check(all(launches[k] > 0 for k in ("lut_hist", "ccmin_prop",
+                                        "hist_dense", "keep_lut"))
+          and launches["forest_labels"] == launches["cc_labels"] == 0,
+          f"the rule path's kernels ran, and no other: {launches}")
     check(labels.shape == (BATCH, HEIGHT, WIDTH)
           and labels.dtype == torch.uint8, "rule maps (B, H, W) uint8")
     counts = torch.bincount(labels.reshape(-1).long(), minlength=256)
@@ -316,6 +384,293 @@ def rule_phases(dev, cfg, scenes, luts, params, hists, scenes_d, luts_d,
             "library_ms": lib, "library_note": lib_note, "bytes": nbytes,
             "shape": [m3, HEIGHT, WIDTH], "rule_path_ms": batch_ms})
     return rows
+
+
+def cc_checks(cases, errs) -> None:
+    """``cc_labels`` against ``cc_labels_plain`` on the card, bit-equal;
+    2-D masks also against ``ccmin_prop`` over flat indices, and stacks
+    against each of their masks on its own."""
+    from rs_image_segmentation_tpu_torch.ops import kernels
+    for label, mask in cases.items():
+        for conn in (8, 4):
+            got = kernels.cc_labels(mask, conn)
+            ref = kernels.cc_labels_plain(mask, conn)
+            torch.cuda.synchronize()
+            diff = int((got != ref).sum().item())
+            err = float((got.long() - ref.long()).abs().max().item())
+            check(diff == 0, f"cc_labels [{label}, conn {conn}] bit-equal "
+                  f"({diff} differ)")
+            errs["cc_labels"] = max(errs.get("cc_labels", 0.0), err)
+            if mask.dim() == 2:
+                flat = torch.arange(mask.numel(), dtype=torch.int32,
+                                    device=mask.device).reshape(mask.shape)
+                check(torch.equal(got, kernels.ccmin_prop(mask, flat, conn)),
+                      f"cc_labels == ccmin_prop over flat indices [{label}]")
+            else:
+                for i in range(mask.shape[0]):
+                    check(torch.equal(got[i], kernels.cc_labels(
+                        mask[i].contiguous(), conn)),
+                          f"cc_labels [{label}] mask {i} equals its own "
+                          "labels")
+            h, w = ref.shape[-2:]
+            own = torch.arange(h * w, device=ref.device).reshape(h, w)
+            fg = ref >= 0
+            n_comp = int((ref == own).sum().item())    # one root each
+            print(f"check cc_labels [{label}, conn {conn}] at "
+                  f"{tuple(mask.shape)}: bit-equal; {int(fg.sum().item())} "
+                  f"foreground pixels in {n_comp} components", flush=True)
+
+
+def single_scene_phases(dev, cfg, scenes, luts, scenes_d, luts_d) -> dict:
+    """Phases 10-12: ``cc_labels`` against its plain version, the
+    single-scene rule program, the uncapped large-scene route; returns the
+    ``cc_labels`` row of the JSON line."""
+    from rs_image_segmentation_tpu_torch.core.config import (
+        CalibrationConfig, RuleBasedConfig)
+    from rs_image_segmentation_tpu_torch.ops import components, kernels
+    from rs_image_segmentation_tpu_torch.ops.morphology import closing
+    from rs_image_segmentation_tpu_torch.ops.threshold import (
+        threshold_binary)
+    from rs_image_segmentation_tpu_torch.pipeline import large_scene, turbo
+    from rs_image_segmentation_tpu_torch.pipeline.preprocess import (
+        build_stretch_lut)
+    from rs_image_segmentation_tpu_torch.tools.fixtures import (
+        serpentine_mask, spiral_mask, stretch_stats_batch)
+    from rs_image_segmentation_tpu_torch.utils.timing import cuda_time_ms
+
+    rc = RuleBasedConfig()
+
+    def single(raw_d, lut_d):
+        return turbo.rule_based_scenes_turbo(raw_d, lut_d, cfg, device=dev)
+
+    # ---- 10. cc_labels against its plain version
+    t0 = time.perf_counter()
+    cal = CalibrationConfig()
+    big = reflected_tiling(scenes[0], LARGE)
+    big_lut = build_stretch_lut(big, np.asarray(cal.gains),
+                                np.asarray(cal.biases)).astype(np.uint8)
+    big_arr = stretch(big, big_lut)
+    big_hists = large_scene.band_histograms_u8(big_arr)
+    print(f"large scene: {big.shape} uint8, a reflected tiling of scene 0 "
+          f"(the fixture's host smoothing grows with the pixel count), LUT, "
+          f"stretched scene and histograms in "
+          f"{time.perf_counter() - t0:.2f} s on the host", flush=True)
+    big_d = torch.from_numpy(big).to(dev)
+    big_lut_d = torch.from_numpy(big_lut).to(dev)
+    _, masks = graph_cc_masks(lambda: single(scenes_d[0], luts_d[0]))
+    big_map, big_masks = graph_cc_masks(lambda: single(big_d, big_lut_d))
+    check(len(masks) == 4 and len(big_masks) == 4
+          and all(c == 8 for _, c in masks + big_masks),
+          "the single-scene graph hands four masks to connected components, "
+          "8-connected")
+    names = ("vegetation", "water", "built-up", "bare land")
+    rng = np.random.default_rng(SEED + 2)
+    cases = {f"scene 0 {n} mask": m for n, (m, _) in zip(names, masks)}
+    cases.update({
+        "speckle p=0.5": torch.from_numpy(
+            rng.random((HEIGHT, WIDTH)) < 0.5).to(dev),
+        "spiral 300x300": torch.from_numpy(spiral_mask(300, 300)).to(dev),
+        "serpentine 300x140": torch.from_numpy(
+            serpentine_mask(300, 140)).to(dev),
+        "empty": torch.zeros((HEIGHT, WIDTH), dtype=torch.bool, device=dev),
+        "full": torch.ones((HEIGHT, WIDTH), dtype=torch.bool, device=dev),
+        "wide stripes": torch.from_numpy(wide_stripes()).to(dev),
+        "stack of 4 (p 0.3-0.7)": torch.from_numpy(
+            rng.random((4, HEIGHT, WIDTH))
+            < np.array([0.3, 0.5, 0.6, 0.7])[:, None, None]).to(dev),
+    })
+    cases.update({f"{LARGE}x{LARGE} {n} mask": m
+                  for n, (m, _) in zip(names, big_masks)})
+    errs = {}
+    cc_checks(cases, errs)
+
+    # ---- 11. the single-scene rule program on scene 0
+    out, launches = counted(lambda: single(scenes_d[0], luts_d[0]))
+    check(launches["lut_hist"] == 1 and launches["cc_labels"] > 0
+          and all(launches[k] == 0 for k in ("ccmin_prop", "hist_dense",
+                                             "keep_lut", "forest_labels")),
+          f"the single-scene program ran lut_hist once, cc_labels, and no "
+          f"other kernel: {launches}")
+    check(out.shape == (HEIGHT, WIDTH) and out.dtype == torch.uint8,
+          "single-scene map (H, W) uint8")
+    batch0 = turbo.rule_based_scenes_turbo_batch(scenes_d[:1], luts_d[:1],
+                                                 cfg, device=dev)[0]
+    check(torch.equal(out, batch0),
+          "single-scene map bit-equal to the batched program's scene 0")
+    counts = torch.bincount(out.reshape(-1).long(), minlength=5)
+    hist = {int(c): int(counts[c]) for c in torch.nonzero(counts)[:, 0]}
+    print(f"single-scene path: launches {launches}; class histogram {hist}; "
+          "bit-equal to the batched program's scene 0")
+    walls = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single(scenes_d[0], luts_d[0])
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    scene_ms = statistics.median(walls[1:])
+    print(f"single-scene path: median {scene_ms:.3f} ms/scene, "
+          f"{HEIGHT * WIDTH / scene_ms / 1e3:.3f} MP/s (inputs resident on "
+          f"the card; runs {[round(w, 3) for w in walls]})")
+    nd = [p[0] for p in turbo._rule_front(scenes_d[:1], luts_d[:1], cfg)]
+    area = HEIGHT * WIDTH
+    min_areas = [int(area * f) for f in (
+        rc.veg_min_area_frac, rc.water_min_area_frac,
+        rc.builtup_min_area_frac, rc.bareland_min_area_frac)]
+    mask4 = [m for m, _ in masks]
+    labels4 = [kernels.cc_labels(m) for m in mask4]
+
+    def thresholds_and_closings():
+        veg = threshold_binary(nd[0], rc.ndvi_threshold)
+        water = threshold_binary(nd[2], rc.mndwi_threshold)
+        built = ((threshold_binary(nd[3], rc.ndbi_threshold) != 0)
+                 & (threshold_binary(nd[0], rc.ndvi_threshold_for_builtup,
+                                     above=False) != 0)).to(torch.uint8)
+        return (closing(veg, 3, shape="ellipse"),
+                closing(water, 3, shape="ellipse"),
+                closing(built, 5, shape="ellipse"))
+
+    def areas_and_keep():
+        return [((m != 0) & (components._areas_per_pixel(lab) >= a))
+                .to(torch.uint8)
+                for m, lab, a in zip(mask4, labels4, min_areas)]
+
+    stage = {
+        "front (preamble, percentiles, indices)": cuda_time_ms(
+            lambda: turbo._rule_front(scenes_d[:1], luts_d[:1], cfg), 5),
+        "thresholds and closings (veg, water, built-up)": cuda_time_ms(
+            thresholds_and_closings, 5),
+        "four connected-components calls": cuda_time_ms(
+            lambda: [kernels.cc_labels(m) for m in mask4], 10),
+        "areas and keep (four masks)": cuda_time_ms(areas_and_keep, 5),
+    }
+    whole = cuda_time_ms(lambda: single(scenes_d[0], luts_d[0]), 5)
+    stage["the rest (openings, paint, bare-land threshold and closing)"] = (
+        whole - sum(stage.values()))
+    print(f"single-scene path, device ms per scene (events): whole "
+          f"{whole:.4f}; " + "; ".join(f"{k} {v:.4f}"
+                                       for k, v in stage.items()))
+    t0 = time.perf_counter()
+    cpu0 = turbo.rule_based_scenes_turbo(scenes[0], luts[0], cfg,
+                                         device="cpu")
+    agreement = float((cpu0 == out.cpu()).double().mean())
+    check(agreement >= 0.999, f"single-scene card vs CPU agreement "
+          f"{agreement}")
+    print(f"single-scene path, scene 0 on the CPU in "
+          f"{time.perf_counter() - t0:.1f} s: agreement with the card "
+          f"{agreement:.6f}")
+
+    # ---- 12a. the reroute: a scene past the batched program's id cap
+    noise = np.random.default_rng(SEED + 3).integers(
+        0, 256, (1, BANDS, HEIGHT, WIDTH), dtype=np.uint8)
+    noise_lut = stretch_stats_batch(noise)[0]
+    noise_d = torch.from_numpy(noise).to(dev)
+    noise_lut_d = torch.from_numpy(noise_lut).to(dev)
+    _, overflow = turbo.rule_based_scenes_turbo_batch(
+        noise_d, noise_lut_d, cfg, return_overflow=True, device=dev)
+    check(overflow.tolist() == [True],
+          f"the batched program flags the noise scene: {overflow.tolist()}")
+    noise_arr = stretch(noise[0], noise_lut[0])
+    rerouted, launches_large = counted(lambda: large_scene
+                                       .rule_based_large_scene(
+                                           noise_arr, cfg, device=dev))
+    check(launches_large["cc_labels"] > 0 and launches_large["lut_hist"] == 0
+          and launches_large["ccmin_prop"] == 0,
+          f"the large-scene route ran cc_labels only: {launches_large}")
+    noise_cpu = large_scene.rule_based_large_scene(noise_arr, cfg,
+                                                   device="cpu")
+    agreement_noise = float((noise_cpu == rerouted).mean())
+    check(agreement_noise >= 0.999, f"noise scene card vs CPU agreement "
+          f"{agreement_noise}")
+    noise_single = single(noise_d[0], noise_lut_d[0]).cpu().numpy()
+    check(np.array_equal(rerouted, noise_single),
+          "the large-scene route equals the single-scene program on the "
+          "noise scene")
+    print(f"reroute: the batched program flags the noise scene (overflow "
+          f"{overflow.tolist()}); rule_based_large_scene launches "
+          f"{launches_large}; card vs CPU agreement {agreement_noise:.6f}; "
+          f"equal to rule_based_scenes_turbo")
+
+    # ---- 12b. full size: 7 x 6000 x 6000
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    big_out, launches_big = counted(lambda: large_scene
+                                    .rule_based_large_scene(
+                                        big_arr, cfg, hists=big_hists,
+                                        device=dev))
+    # the route's own peak, above what this script holds on the card
+    peak_gb = (torch.cuda.max_memory_allocated() - resident) / 1e9
+    check(big_out.shape == (LARGE, LARGE) and big_out.dtype == np.uint8,
+          "large-scene map (H, W) uint8")
+    check(np.array_equal(big_out, big_map.cpu().numpy()),
+          f"{LARGE}x{LARGE}: rule_based_large_scene bit-equal to "
+          "rule_based_scenes_turbo")
+    check(launches_big["cc_labels"] == 4, f"large-scene launches "
+          f"{launches_big}")
+    large_walls, single_walls = [], []
+    for _ in range(4):
+        for walls_, fn in ((large_walls, lambda: large_scene
+                            .rule_based_large_scene(big_arr, cfg,
+                                                    hists=big_hists,
+                                                    device=dev)),
+                           (single_walls, lambda: single(big_d, big_lut_d))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls_.append((time.perf_counter() - t0) * 1e3)
+    large_ms = statistics.median(large_walls[1:])
+    single_ms = statistics.median(single_walls[1:])
+    counts = np.bincount(big_out.reshape(-1), minlength=5)
+    print(f"{LARGE}x{LARGE}: rule_based_large_scene bit-equal to "
+          f"rule_based_scenes_turbo; launches {launches_big}; class counts "
+          f"{counts.tolist()}; rule_based_large_scene (host numpy in and "
+          f"out) median {large_ms:.3f} ms/scene, "
+          f"{LARGE * LARGE / large_ms / 1e3:.3f} MP/s "
+          f"(runs {[round(w, 3) for w in large_walls]}); "
+          f"rule_based_scenes_turbo (inputs resident) median "
+          f"{single_ms:.3f} ms/scene, {LARGE * LARGE / single_ms / 1e3:.3f} "
+          f"MP/s (runs {[round(w, 3) for w in single_walls]}); peak device "
+          f"memory of rule_based_large_scene {peak_gb:.3f} GB "
+          f"(max_memory_allocated above the {resident / 1e9:.3f} GB "
+          f"resident)")
+
+    # ---- cc_labels numbers at both sizes, per mask
+    def per_mask(masks_, reps, warmup=2):
+        return statistics.mean(cuda_time_ms(lambda: kernels.cc_labels(m),
+                                            reps, warmup) for m, _ in masks_)
+
+    def per_mask_plain(masks_, reps, warmup):
+        return statistics.mean(cuda_time_ms(
+            lambda: kernels.cc_labels_plain(m), reps, warmup)
+            for m, _ in masks_)
+
+    ms, ms_big = per_mask(masks, 20), per_mask(big_masks, 5)
+    plain, plain_big = per_mask_plain(masks, 2, 1), per_mask_plain(
+        big_masks, 1, 0)
+    bms, by = bound(HEIGHT * WIDTH * 5, 0)
+    bms_big, by_big = bound(LARGE * LARGE * 5, 0)
+    print(f"cc_labels, device ms per mask (mean of the graph's four): "
+          f"{HEIGHT}x{WIDTH} {ms:.4f} (plain {plain:.4f}, bound "
+          f"{bms * 1e3:.3f} us); {LARGE}x{LARGE} {ms_big:.4f} (plain "
+          f"{plain_big:.4f}, bound {bms_big * 1e3:.3f} us)")
+    return {
+        "name": "cc_labels", "route": "cuda",
+        "source": f"{CSRC}/ccmin_prop.cu", "replaces": f"{PALLAS}:1251",
+        "launches": launches["cc_labels"], "max_abs_err": errs["cc_labels"],
+        "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_us": bms * 1e3,
+        "bound_by": by, "library_ms": None,
+        "library_note": "no single PyTorch call computes connected "
+                        "components",
+        "bound_note": "bytes: mask 1 B + labels 4 B per pixel; at 600 x 600 "
+                      "three launches' latency exceeds it",
+        "bytes": HEIGHT * WIDTH * 5, "shape": [HEIGHT, WIDTH],
+        "ms_6000": ms_big, "plain_ms_6000": plain_big,
+        "bound_ms_6000": bms_big, "bound_by_6000": by_big,
+        "bytes_6000": LARGE * LARGE * 5, "shape_6000": [LARGE, LARGE],
+        "launches_large_scene": launches_big["cc_labels"],
+        "single_scene_ms": scene_ms, "large_scene_ms_6000": large_ms,
+        "single_scene_ms_6000": single_ms, "peak_gb_6000": peak_gb}
 
 
 def main() -> int:
@@ -427,13 +782,8 @@ def main() -> int:
             scenes_d, luts_d, gf, cfg, stretch_params=params_d,
             stretch_hists=hists_d, device=dev)
 
-    kernels.lut_hist.launches = 0
-    kernels.forest_labels.launches = 0
-    labels = main_path()
-    torch.cuda.synchronize()
-    launches = {"lut_hist": kernels.lut_hist.launches,
-                "forest_labels": kernels.forest_labels.launches}
-    check(all(v > 0 for v in launches.values()),
+    labels, launches = counted(main_path)
+    check(launches["lut_hist"] > 0 and launches["forest_labels"] > 0,
           f"both kernels ran on the main path: {launches}")
     check(labels.shape == (BATCH, HEIGHT, WIDTH)
           and labels.dtype == torch.uint8, "label maps (B, H, W) uint8")
@@ -510,6 +860,8 @@ def main() -> int:
 
     rows += rule_phases(dev, cfg, scenes, luts, params, hists, scenes_d,
                         luts_d, params_d, hists_d, rows[0])
+    rows.append(single_scene_phases(dev, cfg, scenes, luts, scenes_d,
+                                    luts_d))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

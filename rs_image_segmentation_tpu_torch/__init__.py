@@ -5,11 +5,17 @@ The port imports neither JAX nor the JAX package; it keeps its own copies
 of the host-side numpy code it needs (configs, stretch tables, the CART
 trainer).
 
-Ported so far: the supervised turbo path
-``pipeline.turbo.classify_scenes_turbo`` — raw ``(B, 7, H, W)`` uint8
-scenes -> stretch preamble (CUDA kernel ``lut_hist``) -> 19-channel
-channel-major stack -> forest labels (CUDA kernel ``forest_labels``) ->
-``(B, H, W)`` uint8 class maps.
+Ported so far:
+* the supervised turbo path ``pipeline.turbo.classify_scenes_turbo`` —
+  raw ``(B, 7, H, W)`` uint8 scenes -> stretch preamble (CUDA kernel
+  ``lut_hist``) -> 19-channel channel-major stack -> forest labels (CUDA
+  kernel ``forest_labels``) -> ``(B, H, W)`` uint8 class maps;
+* the batched rule program ``pipeline.turbo.rule_based_scenes_turbo_batch``
+  (CUDA kernels ``ccmin_prop``, ``hist_dense`` and ``keep_lut``);
+* the single-scene rule program ``pipeline.turbo.rule_based_scenes_turbo``
+  and the uncapped large-scene route
+  ``pipeline.large_scene.rule_based_large_scene``, both through
+  ``pipeline.classify.rule_based_classify`` (CUDA kernel ``cc_labels``).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
 no CUDA device and no explicit device they raise (``backend.py``).

@@ -1,11 +1,15 @@
-// ccmin_prop: per-component minimum of int32 values over the 8- or
-// 4-connected components of each (H, W) mask of an (M, H, W) stack.
-// Every foreground pixel gets min(values over its component); background
-// gets -1. Components never cross masks.
+// Two entry points over the 8- or 4-connected components of each (H, W)
+// mask of an (M, H, W) stack; components never cross masks.
+//   ccmin_prop_launch: every foreground pixel gets min(values over its
+//     component); background gets -1.
+//   cc_labels_launch: every foreground pixel gets its component's minimum
+//     mask-relative linear index y * W + x; background gets -1.
 //
 // Replaces: rs_image_segmentation_tpu/ops/pallas_kernels.py
 //   ccmin_prop_pallas (_ccmin_run, _cc_strip_kernel, _cc_sweep_kernel,
-//   _cc_strip_converge, _coarse_seed).
+//   _cc_strip_converge, _coarse_seed) and
+//   cc_pallas (_ccmin_run with jump=True, _cc_strip_kernel,
+//   _cc_strip_converge).
 //
 // What bounds it on an H100: bytes, at best. The function reads the mask
 // (1 B) and the values (4 B) and writes the result (4 B) per pixel: at the
@@ -14,6 +18,10 @@
 // strip by strip, with gated halo passes; its cost grew with the number
 // of turns a component makes. Here the work is union-find, whose cost does
 // not depend on the geometry beyond the depth of the trees it builds.
+// cc_labels reads the mask (1 B) and writes the labels (4 B) per pixel:
+// 1.8 MB for one 600 x 600 mask, 0.54 us at 3.35 TB/s, so there its three
+// launches' latency bounds it; 180 MB for one 6000 x 6000 mask, about
+// 54 us, where bytes bound it.
 //
 // What the design does about it:
 //   * Union-find with the root at the minimum linear index: every link
@@ -34,6 +42,11 @@
 //   * Pass 4 (one thread per pixel): gathers the root's minimum.
 //   The output buffer holds the parents until pass 4 overwrites them in
 //   place; `minv` is one int32 scratch plane per pixel, from the wrapper.
+//   cc_labels runs passes 1 and 2 without the values (parents only), then
+//   one labelling pass: each pixel finds its root, stores it in the
+//   parents (path compression) and writes root - mask base to the labels,
+//   -1 at background. The roots are stack-global indices, hence the base.
+//   Union-find always converges, so there is no round bound to cut it.
 //   Mask-relative neighbours are checked against the mask's own H and W,
 //   so masks stacked in M never touch.
 
@@ -77,12 +90,15 @@ __device__ __forceinline__ void unite(int* parent, int a, int b) {
   }
 }
 
-template <int kConn>
+// kMin: also fold the values into each local root (ccmin_prop); without
+// it the pass writes the parents only (cc_labels), and values and minv
+// are not read.
+template <int kConn, bool kMin>
 __global__ void __launch_bounds__(kTileThreads)
 ccmin_tile(const uint8_t* __restrict__ mask, const int* __restrict__ values,
            int* __restrict__ parent, int* __restrict__ minv, int h, int w) {
   __shared__ int s_lab[kTileThreads];
-  __shared__ int s_min[kTileThreads];
+  __shared__ int s_min[kMin ? kTileThreads : 1];
   __shared__ uint8_t s_fg[kTileThreads];
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
@@ -94,7 +110,7 @@ ccmin_tile(const uint8_t* __restrict__ mask, const int* __restrict__ values,
   const bool fg = in && mask[g] != 0;
   s_fg[t] = fg;
   s_lab[t] = t;
-  s_min[t] = INT_MAX;
+  if constexpr (kMin) s_min[t] = INT_MAX;
   __syncthreads();
 
   // Each 8- (or 4-) adjacent pair of the tile ends up joined, with fewer
@@ -125,12 +141,14 @@ ccmin_tile(const uint8_t* __restrict__ mask, const int* __restrict__ values,
   __syncthreads();
 
   const int r = fg ? find_root(s_lab, t) : -1;
-  const int v = fg ? values[g] : INT_MAX;
-  // a warp is one tile row: lanes of one run share their root
-  const unsigned peers = __match_any_sync(kFull, r);
-  const int vmin = __reduce_min_sync(peers, v);
-  if (fg && tx == __ffs(peers) - 1) atomicMin(&s_min[r], vmin);
-  __syncthreads();
+  if constexpr (kMin) {
+    const int v = fg ? values[g] : INT_MAX;
+    // a warp is one tile row: lanes of one run share their root
+    const unsigned peers = __match_any_sync(kFull, r);
+    const int vmin = __reduce_min_sync(peers, v);
+    if (fg && tx == __ffs(peers) - 1) atomicMin(&s_min[r], vmin);
+    __syncthreads();
+  }
 
   if (in) {
     if (fg) {
@@ -140,7 +158,7 @@ ccmin_tile(const uint8_t* __restrict__ mask, const int* __restrict__ values,
     } else {
       parent[g] = -1;
     }
-    minv[g] = (fg && r == t) ? s_min[t] : INT_MAX;
+    if constexpr (kMin) minv[g] = (fg && r == t) ? s_min[t] : INT_MAX;
   }
 }
 
@@ -204,17 +222,53 @@ ccmin_gather(int* out, const int* __restrict__ minv, int n) {
   if (r >= 0) out[i] = minv[r];
 }
 
+// Labels from the parents: root - mask base at foreground, -1 at
+// background. `parent` and `out` may be one buffer when the stack holds
+// one mask (base 0): both stores then write the root.
+__global__ void __launch_bounds__(kFlatThreads)
+cc_label(int* parent, int* out, int n, int hw) {
+  const long long i = static_cast<long long>(blockIdx.x) * kFlatThreads
+      + threadIdx.x;
+  if (i >= n) return;
+  const int g = static_cast<int>(i);
+  if (parent[g] < 0) {
+    out[g] = -1;
+    return;
+  }
+  const int r = find_root(parent, g);
+  parent[g] = r;
+  out[g] = r - (g / hw) * hw;
+}
+
 template <int kConn>
 void launch(const uint8_t* mask, const int* values, int* out, int* minv,
             int m, int h, int w, cudaStream_t s) {
   const dim3 tiles((w + kTile - 1) / kTile, (h + kTile - 1) / kTile, m);
-  ccmin_tile<kConn><<<tiles, dim3(kTile, kTile), 0, s>>>(mask, values, out,
-                                                          minv, h, w);
+  ccmin_tile<kConn, true><<<tiles, dim3(kTile, kTile), 0, s>>>(
+      mask, values, out, minv, h, w);
   ccmin_borders<kConn><<<tiles, 3 * kTile, 0, s>>>(mask, out, h, w);
   const int n = m * h * w;
   const int blocks = (n + kFlatThreads - 1) / kFlatThreads;
   ccmin_compress<<<blocks, kFlatThreads, 0, s>>>(out, minv, n);
   ccmin_gather<<<blocks, kFlatThreads, 0, s>>>(out, minv, n);
+}
+
+template <int kConn>
+void launch_labels(const uint8_t* mask, int* out, int* parent, int m, int h,
+                   int w, cudaStream_t s) {
+  const dim3 tiles((w + kTile - 1) / kTile, (h + kTile - 1) / kTile, m);
+  ccmin_tile<kConn, false><<<tiles, dim3(kTile, kTile), 0, s>>>(
+      mask, nullptr, parent, nullptr, h, w);
+  ccmin_borders<kConn><<<tiles, 3 * kTile, 0, s>>>(mask, parent, h, w);
+  const int n = m * h * w;
+  const int blocks = (n + kFlatThreads - 1) / kFlatThreads;
+  cc_label<<<blocks, kFlatThreads, 0, s>>>(parent, out, n, h * w);
+}
+
+bool bad_shape(int m, int h, int w, int connectivity) {
+  return m <= 0 || h <= 0 || w <= 0 || m > 65535
+      || static_cast<long long>(m) * h * w > INT_MAX
+      || (connectivity != 8 && connectivity != 4);
 }
 
 }  // namespace
@@ -225,9 +279,7 @@ void launch(const uint8_t* mask, const int* values, int* out, int* minv,
 extern "C" int ccmin_prop_launch(const void* mask, const void* values,
                                  void* out, void* minv, int m, int h, int w,
                                  int connectivity, void* stream) {
-  if (m <= 0 || h <= 0 || w <= 0 || m > 65535
-      || static_cast<long long>(m) * h * w > INT_MAX
-      || (connectivity != 8 && connectivity != 4)) {
+  if (bad_shape(m, h, w, connectivity)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto s = static_cast<cudaStream_t>(stream);
@@ -239,6 +291,28 @@ extern "C" int ccmin_prop_launch(const void* mask, const void* values,
     launch<8>(mk, v, o, mv, m, h, w, s);
   } else {
     launch<4>(mk, v, o, mv, m, h, w, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// mask: (m, h, w) uint8 (nonzero = foreground); out: (m, h, w) int32
+// labels; parent: (m, h, w) int32 scratch, which may be `out` itself when
+// m == 1. m * h * w must fit in int32 and m in 65535. Returns the
+// cudaError_t of the launches.
+extern "C" int cc_labels_launch(const void* mask, void* out, void* parent,
+                                int m, int h, int w, int connectivity,
+                                void* stream) {
+  if (bad_shape(m, h, w, connectivity) || (parent == out && m != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto s = static_cast<cudaStream_t>(stream);
+  auto mk = static_cast<const uint8_t*>(mask);
+  auto o = static_cast<int*>(out);
+  auto p = static_cast<int*>(parent);
+  if (connectivity == 8) {
+    launch_labels<8>(mk, o, p, m, h, w, s);
+  } else {
+    launch_labels<4>(mk, o, p, m, h, w, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

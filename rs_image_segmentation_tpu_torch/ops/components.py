@@ -1,10 +1,16 @@
-"""Batched min-area removal over a stack of binary masks.
+"""Connected components, hole filling and mask post-processing.
 
-Counterpart of ``rs_image_segmentation_tpu.ops.components``; so far only
-``remove_small_components_batch`` with the semantics of its Pallas route
-(the route held to the ``bins`` id cap). Three CUDA kernels carry it:
-``ops.kernels.ccmin_prop`` spreads each component's id, ``hist_dense``
-counts the areas and ``keep_lut`` reads each pixel's keep bit.
+Counterpart of ``rs_image_segmentation_tpu.ops.components``:
+
+* the single-mask graph: ``connected_components`` (the plain fixed-point
+  labels), ``connected_components_best`` (CUDA kernel
+  ``ops.kernels.cc_labels``), ``component_areas``,
+  ``remove_small_components``, ``fill_holes`` and ``post_process_mask``;
+* ``remove_small_components_batch`` with the semantics of the JAX
+  package's Pallas route (the route held to the ``bins`` id cap). Three
+  CUDA kernels carry it: ``ops.kernels.ccmin_prop`` spreads each
+  component's id, ``hist_dense`` counts the areas and ``keep_lut`` reads
+  each pixel's keep bit.
 """
 
 from __future__ import annotations
@@ -14,7 +20,100 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from .kernels import HIST_LO, ccmin_prop, hist_dense, keep_lut
+from .kernels import (HIST_LO, cc_labels, cc_labels_plain, ccmin_prop,
+                      hist_dense, keep_lut)
+from .morphology import closing, opening
+
+
+def connected_components(mask: torch.Tensor,
+                         connectivity: int = 8) -> torch.Tensor:
+    """(H, W) mask -> int32 labels: each component carries the minimum
+    linear index of its pixels, background -1. The plain graph on any
+    device (neighbour min, row and column run minima, one pointer jump per
+    round), run to its fixed point: the JAX function's ``max_iters`` only
+    bounds that loop."""
+    return cc_labels_plain(mask, connectivity)
+
+
+def connected_components_best(mask: torch.Tensor, connectivity: int = 8,
+                              impl: str = "auto") -> torch.Tensor:
+    """Connected-component labels, bit-equal across implementations.
+    ``"auto"`` and ``"pallas"`` take ``ops.kernels.cc_labels`` (the CUDA
+    kernel for a CUDA tensor, its plain version for a CPU tensor);
+    ``"xla"`` takes :func:`connected_components` on any device."""
+    if impl in ("auto", "pallas"):
+        return cc_labels(mask, connectivity)
+    if impl == "xla":
+        return connected_components(mask, connectivity)
+    raise ValueError(f"impl must be 'auto', 'pallas' or 'xla', not {impl!r}")
+
+
+def component_areas(labels: torch.Tensor) -> torch.Tensor:
+    """Pixel count per root label: int32 of length H*W, zero where no
+    component has its root."""
+    flat = labels.reshape(-1)
+    return torch.bincount(flat[flat >= 0].long(),
+                          minlength=flat.numel()).to(torch.int32)
+
+
+def _areas_per_pixel(labels: torch.Tensor) -> torch.Tensor:
+    """Area of each pixel's component, 0 at background."""
+    counts = component_areas(labels)
+    area = counts[labels.clamp_min(0).long()]
+    return torch.where(labels >= 0, area, 0)
+
+
+def component_areas_per_pixel(mask: torch.Tensor,
+                              connectivity: int = 8) -> torch.Tensor:
+    """Area of each pixel's component (0 at background), from the plain
+    labels of :func:`connected_components`."""
+    return _areas_per_pixel(connected_components(mask, connectivity))
+
+
+def remove_small_components(mask: torch.Tensor, min_area: int,
+                            connectivity: int = 8,
+                            cc_impl: str = "auto") -> torch.Tensor:
+    """Zero out the components of an (H, W) mask whose area is below
+    ``min_area``; uint8 out."""
+    labels = connected_components_best(mask, connectivity, impl=cc_impl)
+    keep = _areas_per_pixel(labels) >= min_area
+    return ((mask != 0) & keep).to(torch.uint8)
+
+
+def fill_holes(mask: torch.Tensor) -> torch.Tensor:
+    """scipy.ndimage.binary_fill_holes equivalent on an (H, W) mask: holes
+    are background regions not 4-connected to the border. Here the
+    background's 4-connected components are labelled, and those with a
+    border pixel stay background. The JAX function's ``max_iters`` only
+    bounded its flood loop."""
+    fg = mask != 0
+    labels = connected_components(~fg, 4)
+    border = torch.cat([labels[0], labels[-1], labels[:, 0], labels[:, -1]])
+    # only background pixels carry labels >= 0: reach is background
+    reach = torch.isin(labels, border[border >= 0])
+    return (~reach).to(torch.uint8)
+
+
+def post_process_mask(mask: torch.Tensor, min_area: int = 100,
+                      smooth_kernel_size: int = 3,
+                      do_fill_holes: bool = True,
+                      cc_impl: str = "auto") -> torch.Tensor:
+    """The reference's ``advanced_post_processing``: an ellipse closing
+    (as its hole filler when the kernel is odd, else :func:`fill_holes`),
+    removal of 8-connected components below ``min_area`` (skipped when
+    ``min_area <= 0``), then an ellipse opening when the kernel is odd."""
+    out = mask.to(torch.uint8)
+    odd = smooth_kernel_size > 0 and smooth_kernel_size % 2 == 1
+    if do_fill_holes and odd:
+        out = closing(out, smooth_kernel_size, shape="ellipse")
+    elif do_fill_holes:
+        out = fill_holes(out)
+    if min_area > 0:
+        out = remove_small_components(out, min_area, connectivity=8,
+                                      cc_impl=cc_impl)
+    if odd:
+        out = opening(out, smooth_kernel_size, shape="ellipse")
+    return out
 
 
 def run_rank_seeds(fg: torch.Tensor) -> torch.Tensor:

@@ -9,6 +9,9 @@ version.
 * ``ccmin_prop`` (``csrc/ccmin_prop.cu``) replaces ``ccmin_prop_pallas``:
   the per-component minimum of int32 values over the connected components
   of each mask of a stack.
+* ``cc_labels`` (``csrc/ccmin_prop.cu``, the same union-find) replaces
+  ``cc_pallas``: connected-component labels, each component's minimum
+  mask-relative linear index.
 * ``hist_dense`` and ``keep_lut`` (``csrc/hist_keep.cu``) replace
   ``hist_dense_pallas`` and ``keep_lut_pallas``: per-mask counts of dense
   ids, and the keep bit of each pixel's id.
@@ -293,13 +296,19 @@ def forest_labels(gf, x_cm: torch.Tensor) -> torch.Tensor:
 forest_labels.launches = 0
 
 
-# -------------------------------------------------------------- ccmin_prop
+# --------------------------------------------------- ccmin_prop, cc_labels
 
 _I32_MAX = torch.iinfo(torch.int32).max
 
 
 def _stack3(x: torch.Tensor) -> torch.Tensor:
     return x if x.dim() == 3 else x[None]
+
+
+def _check_mask(mask: torch.Tensor, connectivity: int) -> None:
+    _require(mask.dim() in (2, 3) and mask.dtype in (torch.uint8, torch.bool),
+             "mask must be a (H, W) or (M, H, W) uint8 or bool tensor")
+    _require(connectivity in (8, 4), "connectivity must be 8 or 4")
 
 
 def _seg_min(lab: torch.Tensor, fg: torch.Tensor, run_id: torch.Tensor,
@@ -382,11 +391,9 @@ def ccmin_prop(mask: torch.Tensor, values: torch.Tensor,
     counterpart. Its ``dtype``, ``coarse``, ``cache_masks`` and ``sweep``
     only chose a TPU schedule (label width, seeding, VMEM use, sweep
     order) with the same result, so they are left out too."""
-    _require(mask.dim() in (2, 3) and mask.dtype in (torch.uint8, torch.bool),
-             "mask must be a (H, W) or (M, H, W) uint8 or bool tensor")
+    _check_mask(mask, connectivity)
     _require(values.dtype == torch.int32 and values.shape == mask.shape,
              "values must be int32 of the mask's shape")
-    _require(connectivity in (8, 4), "connectivity must be 8 or 4")
     if mask.device.type == "cpu":
         return ccmin_prop_plain(mask, values, connectivity)
     _require_cuda(mask, values)
@@ -405,6 +412,51 @@ def ccmin_prop(mask: torch.Tensor, values: torch.Tensor,
 
 
 ccmin_prop.launches = 0
+
+
+def cc_labels_plain(mask: torch.Tensor, connectivity: int = 8
+                    ) -> torch.Tensor:
+    """Plain version of :func:`cc_labels`: the labels of
+    :func:`_cc_labels_plain`, made mask-relative, int32, background -1."""
+    _check_mask(mask, connectivity)
+    fg = _stack3(mask) != 0
+    m, h, w = fg.shape
+    lab = _cc_labels_plain(fg, connectivity)
+    base = torch.arange(m, device=fg.device)[:, None, None] * (h * w)
+    out = torch.where(fg, lab - base, -1).to(torch.int32)
+    return out if mask.dim() == 3 else out[0]
+
+
+def cc_labels(mask: torch.Tensor, connectivity: int = 8) -> torch.Tensor:
+    """Connected-component labels of each mask: ``(H, W)`` or ``(M, H,
+    W)`` uint8 or bool (nonzero = foreground) -> int32 of the same shape,
+    each foreground pixel holding the minimum mask-relative linear index
+    ``y * W + x`` of its ``connectivity`` (8 or 4) component, background
+    -1. Components never cross masks.
+
+    The kernel is union-find and always runs to the exact labels, so the
+    JAX function's round bounds ``max_outer`` and ``n_inner`` have no
+    counterpart, nor has ``interpret``."""
+    _check_mask(mask, connectivity)
+    if mask.device.type == "cpu":
+        return cc_labels_plain(mask, connectivity)
+    _require_cuda(mask)
+    m, h, w = _stack3(mask).shape
+    _require(m * h * w < 2 ** 31 and m <= 65535,
+             "the kernel takes fewer than 2**31 pixels and 65535 masks")
+    out = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
+    # one mask: the labels are the compressed parents, no scratch needed
+    parent = out if m == 1 else torch.empty_like(out)
+    _call("ccmin_prop", "cc_labels_launch",
+          [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+           ctypes.c_int, _P],
+          mask.data_ptr(), out.data_ptr(), parent.data_ptr(), m, h, w,
+          connectivity, _stream(mask.device))
+    cc_labels.launches += 1
+    return out
+
+
+cc_labels.launches = 0
 
 
 # ------------------------------------------------------ hist_dense, keep_lut

@@ -1,18 +1,21 @@
-"""The turbo programs over a written-out batch dimension: the supervised
+"""The turbo programs: over a written-out batch dimension the supervised
 path (raw uint8 scenes -> 19-channel channel-major stack -> forest labels)
-and the batched rule program.
+and the batched rule program; and the single-scene rule program.
 
 Counterpart of ``rs_image_segmentation_tpu.pipeline.turbo``
-(``classify_scenes_turbo``, ``rule_based_scenes_turbo_batch`` and the
-functions they run). Every percentile
+(``classify_scenes_turbo``, ``rule_based_scenes_turbo_batch``,
+``rule_based_scenes_turbo`` and the functions they run). Every percentile
 comes from a 256-bin int32 histogram (no sort), imagery stays (B, C, H, W)
 channel-major, and every reduction of the JAX program's per-scene ``vmap``
 (percentiles, the PCA Gram, the Sobel maximum) stays per scene. Two CUDA
 kernels carry the path: ``ops.kernels.lut_hist`` (the preamble) and
 ``ops.kernels.forest_labels`` (the forest); on CPU tensors each runs its
-plain PyTorch version. The rule program shares the preamble and removes
-small components through ``ops.components.remove_small_components_batch``
-(CUDA kernels ``ccmin_prop``, ``hist_dense`` and ``keep_lut``).
+plain PyTorch version. The batched rule program shares the preamble and
+removes small components through
+``ops.components.remove_small_components_batch`` (CUDA kernels
+``ccmin_prop``, ``hist_dense`` and ``keep_lut``); the single-scene one
+through ``pipeline.classify.rule_based_classify`` (CUDA kernel
+``cc_labels``).
 
 Numerics follow the JAX program op for op in f32, so on the CPU features
 match it to ~1e-6 and class maps to > 99.9 %; only summation orders
@@ -38,10 +41,12 @@ from ..ops.morphology import closing, gradient, opening
 from ..ops.stencil import box_filter, sobel_magnitude
 from ..ops.texture import glcm_feature_maps
 from ..ops.threshold import threshold_binary
+from .classify import rule_based_classify
 
 __all__ = ["apply_u8_lut", "histogram256", "percentiles_from_counts",
            "hierarchical_stack_turbo_cm", "gemm_labels_cm",
-           "classify_scenes_turbo", "rule_based_scenes_turbo_batch"]
+           "classify_scenes_turbo", "rule_based_scenes_turbo_batch",
+           "rule_based_scenes_turbo"]
 
 
 # ------------------------------------------------------------ primitives
@@ -213,23 +218,30 @@ def classify_scenes_turbo(scenes_u8, stretch_luts_u8, gf: GemmForest,
 
 # ------------------------------------------------------ batched rule program
 
-def _rule_front(scenes_u8: torch.Tensor, stretch_luts_u8: torch.Tensor,
-                cfg: FeatureStageConfig, sp=None, hist_in=None):
-    """Preamble, robust normalisation and the four rule indices of a
-    (B, 7, H, W) batch: ``(ndvi, ndwi, mndwi, ndbi)``, each (B, H, W) f32.
-    The rule program never builds the PCA or texture channels."""
-    b, c, h, w = scenes_u8.shape
-    stretched, hist = _preamble(scenes_u8, stretch_luts_u8, sp, hist_in)
+def rule_indices(stretched: torch.Tensor, hist: torch.Tensor,
+                 cfg: FeatureStageConfig):
+    """Robust normalisation and the four rule indices of stretched
+    (B, 7, H, W) scenes (exact uint8 levels, any dtype) with their
+    (B, 7, 256) histograms: ``(ndvi, ndwi, mndwi, ndbi)``, each (B, H, W)
+    f32. The rule programs never build the PCA or texture channels."""
+    b, c, h, w = stretched.shape
     vals = torch.arange(256, dtype=torch.float32,
-                        device=scenes_u8.device).expand(b, c, 256)
+                        device=stretched.device).expand(b, c, 256)
     p = percentiles_from_counts(hist, vals,
                                 (cfg.normalize.lower_percentile,
                                  cfg.normalize.upper_percentile), h * w)
     lo, hi = p[0][..., None, None], p[1][..., None, None]
-    x = ((torch.clamp(stretched, lo, hi) - lo)
+    x = ((torch.clamp(stretched.to(torch.float32), lo, hi) - lo)
          / (hi - lo + cfg.normalize.epsilon))
     return (ndvi(x[:, 3], x[:, 2]), ndwi(x[:, 1], x[:, 3]),
             mndwi(x[:, 1], x[:, 4]), ndbi(x[:, 4], x[:, 3]))
+
+
+def _rule_front(scenes_u8: torch.Tensor, stretch_luts_u8: torch.Tensor,
+                cfg: FeatureStageConfig, sp=None, hist_in=None):
+    """Preamble, then :func:`rule_indices`, of a (B, 7, H, W) batch."""
+    return rule_indices(*_preamble(scenes_u8, stretch_luts_u8, sp, hist_in),
+                        cfg)
 
 
 def _rule_first_stage(ndvi_b: torch.Tensor, ndwi_b: torch.Tensor,
@@ -324,3 +336,29 @@ def _rule_labels(ndvi_b: torch.Tensor, ndwi_b: torch.Tensor,
     bare = opening(bare, 3, shape="ellipse")
     out = torch.where((bare == 1) & (out == 0), 4, out)
     return out, ov3[:b] | ov3[b:2 * b] | ov3[2 * b:] | ov_bare
+
+
+# ------------------------------------------------- single-scene rule program
+
+def rule_based_scenes_turbo(scene_u8, stretch_lut_u8,
+                            cfg: FeatureStageConfig = FeatureStageConfig(),
+                            rule_cfg: "RuleBasedConfig | None" = None,
+                            cc_impl: str = "auto",
+                            device: DeviceLike = None) -> torch.Tensor:
+    """Rule-based classification of ONE scene: a (7, H, W) raw uint8 scene
+    + its (7, 256) stretch LUT -> (H, W) uint8 labels on ``device`` (CUDA
+    unless named), 0 unclassified, 1 vegetation, 2 water, 3 built-up,
+    4 bare land.
+
+    The preamble (``lut_hist``, with its histogram) and the four index
+    planes are the batched program's; the rest is
+    ``pipeline.classify.rule_based_classify``, whose four min-area stages
+    label whole masks with ``ops.kernels.cc_labels`` and have no id cap.
+    ``cc_impl`` picks the connected-components route
+    (``ops.components.connected_components_best``)."""
+    dev = resolve_device(device)
+    scene = _on(scene_u8, dev, torch.uint8)[None]
+    lut = _on(stretch_lut_u8, dev, torch.uint8)[None]
+    planes = [p[0] for p in _rule_front(scene, lut, cfg)]
+    return rule_based_classify(*planes, rule_cfg if rule_cfg is not None
+                               else RuleBasedConfig(), cc_impl=cc_impl)

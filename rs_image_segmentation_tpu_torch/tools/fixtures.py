@@ -96,6 +96,31 @@ def rule_labels(stack: np.ndarray, pick: np.ndarray) -> np.ndarray:
 SAMPLE_COUNTS = (33, 48, 64, 96, 128, 192, 256, 384)
 
 
+def spiral_mask(h: int, w: int) -> np.ndarray:
+    """Concentric rings two pixels apart, each joined to the next: one
+    component that turns at every ring (the JAX package's structured-mask
+    test)."""
+    m = np.zeros((h, w), bool)
+    top, bot, lef, rig = 0, h - 1, 0, w - 1
+    while top <= bot and lef <= rig:
+        m[top, lef:rig + 1] = True
+        m[top:bot + 1, rig] = True
+        m[bot, lef:rig + 1] = True
+        m[top:bot + 1, lef] = True
+        top, bot, lef, rig = top + 2, bot - 2, lef + 2, rig - 2
+    return m
+
+
+def serpentine_mask(h: int, w: int) -> np.ndarray:
+    """Every other row set, joined at alternate ends: one component that
+    turns h / 2 times (the JAX package's structured-mask test)."""
+    m = np.zeros((h, w), bool)
+    m[::2, :] = True
+    m[1::4, -1] = True
+    m[3::4, 0] = True
+    return m
+
+
 def rule_forest(stack: np.ndarray):
     """A forest of ``ForestConfig()`` (100 trees, seed 42) fitted by the
     port's trainer on :func:`rule_labels` of random pixels of ``stack``,

@@ -11,6 +11,8 @@ import torch
 
 from rs_image_segmentation_tpu_torch.models import forest as tforest
 from rs_image_segmentation_tpu_torch.ops import _build, kernels
+from rs_image_segmentation_tpu_torch.tools.fixtures import (
+    serpentine_mask, spiral_mask)
 from rs_image_segmentation_tpu_torch.utils.timing import cuda_time_ms
 
 
@@ -115,26 +117,6 @@ def _ccmin_oracle(mask, values, conn):
     return out
 
 
-def _spiral(h, w):
-    m = np.zeros((h, w), bool)
-    top, bot, lef, rig = 0, h - 1, 0, w - 1
-    while top <= bot and lef <= rig:
-        m[top, lef:rig + 1] = True
-        m[top:bot + 1, rig] = True
-        m[bot, lef:rig + 1] = True
-        m[top:bot + 1, lef] = True
-        top, bot, lef, rig = top + 2, bot - 2, lef + 2, rig - 2
-    return m
-
-
-def _serpentine(h, w):
-    m = np.zeros((h, w), bool)
-    m[::2, :] = True
-    m[1::4, -1] = True
-    m[3::4, 0] = True
-    return m
-
-
 def _ccmin_masks(name):
     """One 150 x 150 shape for every case: the JAX oracle compiles once."""
     rng = np.random.default_rng(5)
@@ -142,9 +124,9 @@ def _ccmin_masks(name):
         return rng.random((3, 150, 150)) < np.array([0.4, 0.5, 0.6])[
             :, None, None]
     if name == "spiral":
-        return _spiral(150, 150)[None]
+        return spiral_mask(150, 150)[None]
     if name == "serpentine":
-        return _serpentine(150, 150)[None]
+        return serpentine_mask(150, 150)[None]
     return np.stack([np.zeros((150, 150), bool), np.ones((150, 150), bool)])
 
 
@@ -175,16 +157,16 @@ def test_ccmin_prop_plain_matches_labels_oracle(name, conn):
                                                               conn))
 
 
-def _kernel_rendering(mask, values, conn, tile):
-    """numpy rendering of ``csrc/ccmin_prop.cu``'s four passes, run one
-    pixel at a time: the per-tile union-find with the kernel's reduced
-    neighbour rule, the unions across tile borders, then the root minima.
-    Which pairs get united is what the kernel's result depends on; the
-    order of the unions changes only the shape of the trees."""
+def _rendered_roots(mask, conn, tile):
+    """numpy rendering of the union-find passes of ``csrc/ccmin_prop.cu``,
+    run one pixel at a time: the per-tile union-find with the kernel's
+    reduced neighbour rule, then the unions across tile borders. Returns
+    every pixel's stack-global root. Which pairs get united is what the
+    kernel's result depends on; the order of the unions changes only the
+    shape of the trees."""
     m, h, w = mask.shape
     fg = mask.reshape(-1) != 0
     parent = np.arange(m * h * w)
-    v = values.reshape(-1)
 
     def find(x):
         while parent[x] != x:
@@ -248,10 +230,25 @@ def _kernel_rendering(mask, values, conn, tile):
                     if ((tx == tile - 1 or ty == 0) and x + 1 < w
                             and fg[g - w + 1]):
                         unite(g, g - w + 1)
-    roots = np.array([find(g) for g in range(m * h * w)])
-    vmin = np.full(m * h * w, I32_MAX, np.int64)
-    np.minimum.at(vmin, roots[fg], v[fg])
+    return np.array([find(g) for g in range(m * h * w)])
+
+
+def _kernel_rendering(mask, values, conn, tile):
+    """The rendered roots, then ccmin_prop's root minima."""
+    fg = mask.reshape(-1) != 0
+    roots = _rendered_roots(mask, conn, tile)
+    vmin = np.full(fg.size, I32_MAX, np.int64)
+    np.minimum.at(vmin, roots[fg], values.reshape(-1)[fg])
     return np.where(fg, vmin[roots], -1).reshape(mask.shape)
+
+
+def _label_rendering(mask, conn, tile):
+    """The rendered roots, then cc_labels' labelling pass: root minus the
+    mask's base at foreground, -1 at background."""
+    m, h, w = mask.shape
+    roots = _rendered_roots(mask, conn, tile).reshape(mask.shape)
+    base = np.arange(m)[:, None, None] * (h * w)
+    return np.where(mask != 0, roots - base, -1)
 
 
 @pytest.mark.parametrize("tile", [32, 5])
@@ -265,6 +262,20 @@ def test_ccmin_kernel_rendering_matches_plain(conn, tile):
                              torch.from_numpy(values), conn).numpy()
     np.testing.assert_array_equal(
         _kernel_rendering(mask, values, conn, tile), ref)
+
+
+@pytest.mark.parametrize("tile", [32, 5])
+@pytest.mark.parametrize("conn", [8, 4])
+def test_cc_label_rendering_matches_plain(conn, tile):
+    """The labels of a stack of three masks: roots are stack-global, so a
+    label must subtract its mask's base, or masks after the first come
+    out wrong."""
+    rng = np.random.default_rng(13)
+    mask = rng.random((3, 37, 45)) < np.array([0.5, 0.6, 0.7])[:, None, None]
+    mask[1, 10:30, 2:40] = True            # a blob across tile borders
+    ref = kernels.cc_labels_plain(torch.from_numpy(mask), conn).numpy()
+    np.testing.assert_array_equal(_label_rendering(mask, conn, tile), ref)
+    assert (ref[1:][mask[1:]] < 37 * 45).all()
 
 
 def test_hist_dense_and_keep_lut_plain_match_pallas_interpret():
