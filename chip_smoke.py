@@ -1,8 +1,10 @@
-"""GPU smoke run of the PyTorch port's three paths on one CUDA card: the
+"""GPU smoke run of the PyTorch port's paths on one CUDA card: the
 supervised turbo classifier (19 channels, a 100-tree forest) and the
-batched rule program on an 8-scene 7 x 600 x 600 batch, and the
-single-scene rule program with its uncapped large-scene route on one
-7 x 600 x 600 scene, a noise scene and one 7 x 6000 x 6000 scene.
+batched rule program on an 8-scene 7 x 600 x 600 batch; the single-scene
+rule program with its uncapped large-scene route on one 7 x 600 x 600
+scene, a noise scene and one 7 x 6000 x 6000 scene; and stage 1
+(preprocess, uint8 and 16-bit DNs) into stage 2 (the feature graph, full
+width) on one 7 x 600 x 600 scene.
 
 Phases, in order; any failed check raises and the script exits non-zero:
   1. the card (nvidia-smi name and power limit); build every CUDA kernel
@@ -11,7 +13,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
   3. a 100-tree forest fitted with the port's trainer on rule labels of
      scene 0's stack;
   4. the supervised path's kernels against their plain PyTorch versions
-     on the card, at the path's shapes (bit-equal outputs required);
+     on the card, at the path's shapes (bit-equal outputs required),
+     with a 20-class forest fitted by the port's trainer beside the path's
+     own (the forest kernel sums classes in chunks of 16);
   5. the supervised path, ``classify_scenes_turbo``, with launch counts
      read around one run, then timed; scene 0 again on the CPU (>= 99.9 %
      label agreement with the card);
@@ -40,7 +44,26 @@ Phases, in order; any failed check raises and the script exits non-zero:
      on the CPU (>= 99.9 % agreement) and against the single-scene
      program; (b) a 7 x 6000 x 6000 scene (a reflected tiling of scene
      0), bit-equal to the single-scene program, timed, with its peak
-     device memory; then the ``cc_labels`` numbers at both sizes, the
+     device memory; then the ``cc_labels`` numbers at both sizes;
+ 13. the stage kernels against their plain versions, bit-equal:
+     ``fused_spectral_indices`` on the batch's normalised bands and on
+     bands whose EVI denominators sit at the 1e-3 guard;
+     ``fused_calibrate_stretch`` on a 16-bit and a float 7 x 600 x 600
+     scene with positive and negative gains; ``glcm_grid`` on the batch's
+     eight NIR texture bands at the default configuration, at levels 8 /
+     window 12, on a band with flat windows, and at levels 256 (counts in
+     global memory);
+ 14. the path: scene 0 (uint8) through ``preprocess_bands`` and a 16-bit
+     copy of it (DN * 257 plus seeded noise) through the f32 route, each
+     into ``extract_features``, with launch counts read around each run
+     (stage 1 f32: ``fused_calibrate_stretch`` once; stage 2:
+     ``fused_spectral_indices`` and ``glcm_grid`` once each; nothing
+     else), timed, then stage 2 by family with CUDA events,
+     ``include_gabor`` and ``hierarchical_stack_fused``; scene 0 again on
+     the CPU (every key within the CPU tests' bounds);
+ 15. the stage kernels' numbers, each call timed with the L2 flushed
+     before it, and what the two fused kernels would save inside the
+     supervised stack (printed, not routed); then the
      card's line, the kernels' JSON line and the result line.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs no
@@ -176,7 +199,30 @@ def graph_cc_masks(run):
 def all_kernels():
     from rs_image_segmentation_tpu_torch.ops import kernels
     return (kernels.lut_hist, kernels.forest_labels, kernels.ccmin_prop,
-            kernels.hist_dense, kernels.keep_lut, kernels.cc_labels)
+            kernels.hist_dense, kernels.keep_lut, kernels.cc_labels,
+            kernels.fused_calibrate_stretch, kernels.fused_spectral_indices,
+            kernels.glcm_grid)
+
+
+STAGE_KERNELS = ("fused_calibrate_stretch", "fused_spectral_indices",
+                 "glcm_grid")
+
+
+def wide_forest(stack0: np.ndarray):
+    """A 10-tree forest of 20 classes, fitted by the port's trainer on 120
+    pixels of scene 0's stack with 20 seeded labels (each class at least
+    once): wider than one 16-class chunk of the forest kernel."""
+    from rs_image_segmentation_tpu_torch.models.forest import (
+        _gemm_for, fit_random_forest)
+    rng = np.random.default_rng(SEED + 20)
+    flat = stack0.reshape(stack0.shape[0], -1)
+    pick = rng.choice(flat.shape[1], 120, replace=False)
+    labels = np.concatenate([np.arange(20), rng.integers(0, 20, 100)])
+    forest, _ = fit_random_forest(flat[:, pick].T, labels, n_estimators=10,
+                                  seed=SEED + 20)
+    gf = _gemm_for(forest, flat.shape[0])
+    check(gf.leaf_dist.shape[1] == 20, "the wide forest has 20 classes")
+    return gf
 
 
 def counted(run):
@@ -281,7 +327,8 @@ def rule_phases(dev, cfg, scenes, luts, params, hists, scenes_d, luts_d,
     (labels, overflow), launches = counted(rule_path)
     check(all(launches[k] > 0 for k in ("lut_hist", "ccmin_prop",
                                         "hist_dense", "keep_lut"))
-          and launches["forest_labels"] == launches["cc_labels"] == 0,
+          and launches["forest_labels"] == launches["cc_labels"] == 0
+          and all(launches[k] == 0 for k in STAGE_KERNELS),
           f"the rule path's kernels ran, and no other: {launches}")
     check(labels.shape == (BATCH, HEIGHT, WIDTH)
           and labels.dtype == torch.uint8, "rule maps (B, H, W) uint8")
@@ -488,7 +535,8 @@ def single_scene_phases(dev, cfg, scenes, luts, scenes_d, luts_d) -> dict:
     out, launches = counted(lambda: single(scenes_d[0], luts_d[0]))
     check(launches["lut_hist"] == 1 and launches["cc_labels"] > 0
           and all(launches[k] == 0 for k in ("ccmin_prop", "hist_dense",
-                                             "keep_lut", "forest_labels")),
+                                             "keep_lut", "forest_labels",
+                                             *STAGE_KERNELS)),
           f"the single-scene program ran lut_hist once, cc_labels, and no "
           f"other kernel: {launches}")
     check(out.shape == (HEIGHT, WIDTH) and out.dtype == torch.uint8,
@@ -673,6 +721,483 @@ def single_scene_phases(dev, cfg, scenes, luts, scenes_d, luts_d) -> dict:
         "single_scene_ms_6000": single_ms, "peak_gb_6000": peak_gb}
 
 
+# card vs CPU bounds of the stage-2 keys: the CPU tests' bounds
+# (tests/test_torch_features.py), atol or (None, share of equal pixels)
+STAGE2_LOOSE = {
+    "evi": 1e-3,
+    "pca_result": 1e-3,
+    "multi_scale_features.std_dev_scale_3": 3.5e-4,
+    "multi_scale_features.std_dev_scale_5": 3.5e-4,
+    "multi_scale_features.std_dev_scale_7": 3.5e-4,
+    "glcm_features.contrast": 3e-5,
+    "lbp_feature": (None, 0.997),
+}
+FAMILIES = ("normalize", "indices", "PCA", "GLCM", "LBP", "multi-scale",
+            "morphology", "filters", "assemble")
+
+
+def flat_features(d, pre=""):
+    """Feature dict -> {dotted key: tensor}, lists by index."""
+    for k, v in d.items():
+        if isinstance(v, dict):
+            yield from flat_features(v, f"{pre}{k}.")
+        elif isinstance(v, (list, tuple)):
+            for i, x in enumerate(v):
+                yield f"{pre}{k}[{i}]", x
+        else:
+            yield pre + k, v
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> int:
+    """How many f32 elements differ in their bits (NaNs compare by bits)."""
+    return int((a.contiguous().view(torch.int32)
+                != b.contiguous().view(torch.int32)).sum().item())
+
+
+def finite_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """Largest |got - ref| where both are finite (0.0 if none is)."""
+    ok = torch.isfinite(got) & torch.isfinite(ref)
+    return float((got - ref)[ok].abs().max().item()) if bool(ok.any()) \
+        else 0.0
+
+
+def guard_bands(dev, n: int = 1 << 20) -> torch.Tensor:
+    """(5, 1, n) bands whose EVI denominators nir + 6 red - 7.5 blue + 1
+    sit within a few ulps of the 1e-3 guard: blue is solved for a
+    denominator of 1e-3 and stepped by -8..8 ulps."""
+    rng = np.random.default_rng(SEED + 30)
+    red = rng.random(n, dtype=np.float32)
+    nir = rng.random(n, dtype=np.float32)
+    blue = ((nir.astype(np.float64) + 6.0 * red + 1.0 - 1e-3) / 7.5
+            ).astype(np.float32)
+    steps = rng.integers(-8, 9, n).astype(np.int32)
+    blue = (blue.view(np.int32) + steps).view(np.float32)
+    green = rng.random(n, dtype=np.float32)
+    swir = rng.random(n, dtype=np.float32)
+    return torch.from_numpy(np.stack([blue, green, red, nir, swir])[:, None]
+                            ).to(dev)
+
+
+def flat_window_band(h: int, w: int) -> np.ndarray:
+    """Quantised levels (32) with flat 21 x 21 windows: a constant block,
+    a block at level 0, a block of vertical stripes, over seeded noise."""
+    q = np.random.default_rng(SEED + 31).integers(0, 32, (h, w)).astype(
+        np.int32)
+    q[:21, :21] = 17
+    q[21:42, 21:42] = 0
+    q[42:63, :21] = np.arange(21)[None] % 32
+    return q
+
+
+def dn16(scene: np.ndarray) -> np.ndarray:
+    """A 16-bit scene from a uint8 one: DN * 257 plus seeded noise in
+    [0, 257)."""
+    noise = np.random.default_rng(SEED + 32).integers(0, 257, scene.shape)
+    return scene.astype(np.uint16) * 257 + noise.astype(np.uint16)
+
+
+L2_FLUSH_BYTES = 256 << 20     # over twice the H100's 50 MB L2
+
+
+def l2_flusher(dev):
+    """A call that evicts the L2 (writes ``L2_FLUSH_BYTES``), then spins the
+    card for about half a millisecond, so that the host has enqueued the
+    timed call before the card reaches it."""
+    buf = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+
+    def flush():
+        buf.zero_()
+        torch.cuda._sleep(1_000_000)
+    return flush
+
+
+def cold_ms(fn, flush, reps: int = 20) -> float:
+    """Median device ms of one call of ``fn`` (CUDA events around it), with
+    the L2 flushed before each call: the inputs come from HBM, as the
+    byte bound assumes."""
+    fn()
+    ts = []
+    for _ in range(reps):
+        flush()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        ts.append(start.elapsed_time(stop))
+    return statistics.median(ts)
+
+
+def kernel_device_ms(fn, kernel: str, flush, reps: int = 20):
+    """Device ms of the CUDA kernel named ``kernel`` per call of ``fn``, from
+    a torch.profiler trace of ``reps`` calls, the L2 flushed before each
+    (the kernel alone, without the wrapper's host time and small ops);
+    None when the trace shows no device time for it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush()
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for ev in prof.key_averages():
+        if kernel in ev.key:
+            total += getattr(ev, "device_time_total",
+                             getattr(ev, "cuda_time_total", 0.0))
+    return total / reps / 1e3 if total > 0 else None
+
+
+def stage_phases(dev, cfg, scenes, luts, scenes_d, luts_d) -> list:
+    """Phases 13-15: the stage kernels against their plain versions, stage
+    1 (uint8 and 16-bit) into stage 2 with launch counts, times and the
+    CPU check, and the stage kernels' rows of the JSON line."""
+    from rs_image_segmentation_tpu_torch.core.config import (
+        CalibrationConfig)
+    from rs_image_segmentation_tpu_torch.models.pca import pca_bands
+    from rs_image_segmentation_tpu_torch.ops import kernels, texture
+    from rs_image_segmentation_tpu_torch.ops.indices import spectral_indices
+    from rs_image_segmentation_tpu_torch.ops.multiscale import (
+        multi_scale_features)
+    from rs_image_segmentation_tpu_torch.ops.normalize import (
+        robust_normalize)
+    from rs_image_segmentation_tpu_torch.pipeline import features
+    from rs_image_segmentation_tpu_torch.pipeline.preprocess import (
+        preprocess_bands)
+    from rs_image_segmentation_tpu_torch.utils.timing import cuda_time_ms
+
+    cal = CalibrationConfig()
+    gains = np.asarray(cal.gains, np.float32)
+    biases = np.asarray(cal.biases, np.float32)
+    # stage 1 takes the configuration's f64 values, as the host LUTs do
+    gains64, biases64 = np.asarray(cal.gains), np.asarray(cal.biases)
+    neg = gains * np.where(np.arange(BANDS) % 2 == 1, -1, 1).astype(
+        np.float32)
+    offsets = tuple(texture._offset_for_angle(1, a) for a in cfg.glcm.angles)
+    g = cfg.glcm
+    errs = {k: 0.0 for k in STAGE_KERNELS}
+
+    # ---- 13. stage kernels against their plain versions, bit-equal
+    stretched = kernels.lut_hist_plain(scenes_d, luts_d, skip_hist=True)
+    bands01 = features.normalize_bands(stretched, cfg)          # (B, 7, H, W)
+    tex01 = robust_normalize(bands01[:, cfg.texture_band_index])
+    idx_cases = {"the batch's normalised bands": bands01,
+                 "EVI denominators at the 1e-3 guard": guard_bands(dev)}
+    for label, x in idx_cases.items():
+        got = kernels.fused_spectral_indices(x)
+        ref = kernels.fused_spectral_indices_plain(x)
+        torch.cuda.synchronize()
+        diff = bits_equal(got, ref)
+        errs["fused_spectral_indices"] = max(
+            errs["fused_spectral_indices"], finite_err(got, ref))
+        check(diff == 0, f"fused_spectral_indices [{label}] bit-equal "
+              f"({diff} differ)")
+        extra = ""
+        if x.shape[-2] == 1:
+            den = x[3] + 6.0 * x[2] - 7.5 * x[0] + 1.0
+            above = int((den > 1e-3).sum().item())
+            extra = (f"; {above} of {den.numel()} denominators above the "
+                     f"guard, {int((ref[1] == 0).sum().item())} EVI "
+                     f"zeros")
+        print(f"check fused_spectral_indices [{label}] at "
+              f"{tuple(x.shape)}: bit-equal{extra}", flush=True)
+    scene16 = dn16(scenes[0])
+    float_dn = (scenes[0].astype(np.float32) * 1.37 + np.random.default_rng(
+        SEED + 33).random(scenes[0].shape, dtype=np.float32))
+    for label, dn, gg in (("uint16, gains", scene16, gains),
+                          ("uint16, negative gains", scene16, neg),
+                          ("f32, gains", float_dn, gains),
+                          ("f32, negative gains", float_dn, neg)):
+        x = torch.from_numpy(dn).to(dev)
+        got = kernels.fused_calibrate_stretch(x, gg, biases)
+        ref = kernels.fused_calibrate_stretch_plain(x, gg, biases)
+        torch.cuda.synchronize()
+        diff = bits_equal(got, ref)
+        errs["fused_calibrate_stretch"] = max(
+            errs["fused_calibrate_stretch"], finite_err(got, ref))
+        check(diff == 0, f"fused_calibrate_stretch [{label}] bit-equal "
+              f"({diff} differ)")
+        # (x * 255) / x rounds twice, so the top need not be 255 exactly
+        lo, hi = float(got.min()), float(got.max())
+        check(bool(torch.isfinite(got).all()) and lo == 0.0
+              and abs(hi - 255.0) < 1e-3,
+              f"fused_calibrate_stretch [{label}] spans [0, 255]: "
+              f"[{lo}, {hi}]")
+        print(f"check fused_calibrate_stretch [{label}] at {tuple(x.shape)}:"
+              f" bit-equal", flush=True)
+    q_batch = (tex01 * (g.levels - 1)).to(torch.uint8).to(torch.int32)
+    glcm_cases = {
+        f"the batch's NIR bands, levels {g.levels}, window {g.window_size}":
+            (q_batch, g.levels, g.window_size),
+        "levels 8, window 12": ((tex01 * 7).to(torch.uint8).to(torch.int32),
+                                8, 12),
+        "flat windows, levels 32, window 21": (torch.from_numpy(
+            flat_window_band(HEIGHT, WIDTH)).to(dev), 32, 21),
+        "levels 256 (global counts), window 21": (
+            (tex01[:2] * 255).to(torch.uint8).to(torch.int32), 256, 21),
+    }
+    for label, (q, levels, window) in glcm_cases.items():
+        got = kernels.glcm_grid(q, levels, window, window, offsets)
+        ref = kernels.glcm_grid_plain(q, levels, window, window, offsets)
+        torch.cuda.synchronize()
+        diff = bits_equal(got, ref)
+        check(diff == 0, f"glcm_grid [{label}] bit-equal ({diff} differ)")
+        errs["glcm_grid"] = max(errs["glcm_grid"], finite_err(got, ref))
+        if label.startswith("flat"):
+            want = torch.tensor([0.0, 0.0, 1.0, 1.0, 1.0], device=dev)
+            check(torch.equal(got[0, 0], want) and torch.equal(got[1, 1],
+                                                               want),
+                  f"flat windows give 0, 0, 1, 1, 1: {got[0, 0].tolist()}")
+        print(f"check glcm_grid [{label}] at {tuple(q.shape)}: bit-equal; "
+              f"{got.shape[-3] * got.shape[-2]} windows per band",
+              flush=True)
+
+    # ---- 14. the path: stage 1 (uint8 and 16-bit) -> stage 2
+    def stage1_u8():
+        return preprocess_bands(scenes[0], gains64, biases64, device=dev)
+
+    def stage1_f32():
+        return preprocess_bands(scene16_d, gains64, biases64, device=dev)
+
+    def stage2(arr):
+        return features.extract_features(arr, cfg, device=dev)
+
+    scene16_d = torch.from_numpy(scene16).to(dev)
+    art_u8, l1_u8 = counted(stage1_u8)
+    check(art_u8.dtype == torch.uint8 and art_u8.shape == (BANDS, HEIGHT,
+                                                           WIDTH)
+          and all(v == 0 for v in l1_u8.values()),
+          f"stage 1 on uint8: (7, H, W) uint8, no kernel: {l1_u8}")
+    check(torch.equal(art_u8.cpu(), torch.from_numpy(
+        stretch(scenes[0], luts[0]))), "stage 1 on uint8 equals the "
+          "host LUT's stretched scene")
+    art16, l1_16 = counted(stage1_f32)
+    check(art16.dtype == torch.uint8 and l1_16["fused_calibrate_stretch"] == 1
+          and sum(l1_16.values()) == 1,
+          f"stage 1 f32 route: fused_calibrate_stretch once and nothing "
+          f"else: {l1_16}")
+    near = float(((art16.int() - art_u8.int()).abs() <= 1).double().mean())
+    print(f"stage 1: uint8 route launches {l1_u8}; 16-bit route launches "
+          f"{l1_16}; 16-bit artifact within one level of the uint8 one on "
+          f"{near:.6f} of pixels")
+    runs = {}
+    for label, art in (("uint8", art_u8), ("16-bit", art16)):
+        (feats, hier), l2 = counted(lambda: stage2(art))
+        check(l2["fused_spectral_indices"] == 1 and l2["glcm_grid"] == 1
+              and sum(l2.values()) == 2,
+              f"stage 2 [{label}]: fused_spectral_indices and glcm_grid "
+              f"once each, nothing else: {l2}")
+        check(hier["all"].shape == (HEIGHT, WIDTH, 19)
+              and bool(torch.isfinite(hier["all"]).all()),
+              f"stage 2 [{label}]: a finite (H, W, 19) stack")
+        flat = dict(flat_features(feats))
+        check(all(bool(torch.isfinite(v).all()) for v in flat.values()),
+              f"stage 2 [{label}]: every feature finite")
+        runs[label] = (feats, hier, l2)
+        print(f"stage 2 [{label}]: launches {l2}; {len(flat)} feature "
+              f"planes, (H, W, 19) stack finite", flush=True)
+    launches = {**l1_16, "fused_spectral_indices": runs["16-bit"][2][
+        "fused_spectral_indices"], "glcm_grid": runs["16-bit"][2][
+        "glcm_grid"]}
+    walls = {}
+    for label, fn in (("stage 1, uint8", stage1_u8),
+                      ("stage 1, 16-bit", stage1_f32),
+                      ("stage 2", lambda: stage2(art_u8))):
+        ts = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        walls[label] = statistics.median(ts[1:])
+        print(f"{label}: median {walls[label]:.3f} ms/scene (runs "
+              f"{[round(t, 3) for t in ts]})")
+
+    # by family, CUDA events; each family's inputs made beforehand
+    b32 = art_u8.to(torch.float32)
+    b01 = features.normalize_bands(b32, cfg)
+    idx = features.index_features(b01)
+    pc, _ = pca_bands(b01, use_robust_scaling=True)
+    t01 = features.texture_band(b01, cfg)
+    glcm = features.glcm_features(t01, cfg)
+    ms = multi_scale_features(t01, cfg.multiscale.scales,
+                              cfg.multiscale.entropy_max_scale)
+    morph = features.morphological_features(t01, cfg.morphology.kernel_sizes)
+    filt = features.filter_responses(t01)
+    fam = dict(zip(FAMILIES, (
+        cuda_time_ms(lambda: features.normalize_bands(b32, cfg), 5),
+        cuda_time_ms(lambda: features.index_features(b01), 20),
+        cuda_time_ms(lambda: pca_bands(b01, use_robust_scaling=True), 5),
+        cuda_time_ms(lambda: features.glcm_features(
+            features.texture_band(b01, cfg), cfg), 10),
+        cuda_time_ms(lambda: texture.lbp_feature(
+            t01, cfg.lbp.n_points, float(cfg.lbp.radius)), 5),
+        cuda_time_ms(lambda: multi_scale_features(
+            t01, cfg.multiscale.scales, cfg.multiscale.entropy_max_scale),
+            3),
+        cuda_time_ms(lambda: features.morphological_features(
+            t01, cfg.morphology.kernel_sizes), 5),
+        cuda_time_ms(lambda: features.filter_responses(t01), 5),
+        cuda_time_ms(lambda: features.assemble(
+            idx, pc[0], glcm, morph["gradient_5"], ms["std_dev_scale_5"],
+            filt["sobel_mag"], cfg.context.window_size), 10))))
+    whole = cuda_time_ms(lambda: stage2(art_u8), 3)
+    print("stage 2 by family, device ms (events): " + "; ".join(
+        f"{k} {v:.4f}" for k, v in fam.items())
+        + f"; sum {sum(fam.values()):.4f}; whole {whole:.4f}")
+    gabor_cfg = type(cfg)(include_gabor=True)
+    gabor_feats, _ = features.extract_features(art_u8, gabor_cfg, device=dev)
+    check(len(gabor_feats["gabor_features"]) == 24
+          and all(bool(torch.isfinite(x).all())
+                  for x in gabor_feats["gabor_features"]),
+          "include_gabor: 24 finite responses")
+    gabor_ms = cuda_time_ms(lambda: features.extract_features(
+        art_u8, gabor_cfg, device=dev), 2, 1)
+    fused_ms = cuda_time_ms(lambda: features.hierarchical_stack_fused(
+        art_u8, cfg, device=dev), 5)
+    print(f"stage 2 with include_gabor: {gabor_ms:.4f} device ms; "
+          f"hierarchical_stack_fused {fused_ms:.4f} device ms")
+
+    # scene 0 again on the CPU
+    t0 = time.perf_counter()
+    cpu_art = preprocess_bands(scenes[0], gains64, biases64, device="cpu")
+    check(torch.equal(cpu_art, art_u8.cpu()), "stage 1 uint8: card == CPU")
+    cpu_art16 = preprocess_bands(scene16, gains64, biases64, device="cpu")
+    check(torch.equal(cpu_art16, art16.cpu()), "stage 1 16-bit: card == CPU")
+    cpu_feats, cpu_hier = features.extract_features(cpu_art, cfg,
+                                                    device="cpu")
+    card, host = dict(flat_features(runs["uint8"][0])), dict(
+        flat_features(cpu_feats))
+    check(sorted(card) == sorted(host), "the same feature keys")
+    worst = {}
+    for key, ref in host.items():
+        got = card[key].cpu()
+        bnd = STAGE2_LOOSE.get(key, 1e-5)
+        if isinstance(bnd, tuple):
+            share = float((got == ref).double().mean())
+            check(share >= bnd[1], f"stage 2 card vs CPU [{key}]: {share} "
+                  f"equal")
+            worst[key] = 1.0 - share
+            continue
+        err = float((got - ref).abs().max())
+        check(err <= bnd, f"stage 2 card vs CPU [{key}]: max err {err} > "
+              f"{bnd}")
+        worst[key] = err
+    for key in cpu_hier:
+        err = float((runs["uint8"][1][key].cpu() - cpu_hier[key]).abs()
+                    .max())
+        check(err <= 1e-3, f"stage 2 card vs CPU [{key}] max err {err}")
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:5]
+    print(f"stage 2, scene 0 on the CPU in {time.perf_counter() - t0:.1f} "
+          f"s: every key within the CPU tests' bounds; largest differences "
+          f"{[(k, float(f'{v:.3g}')) for k, v in top]}")
+
+    # ---- 15. the stage kernels' numbers at the path's shapes, each call
+    # with the L2 flushed before it (the inputs fit the 50 MB L2, and
+    # back-to-back calls would read them from there)
+    n = HEIGHT * WIDTH
+    flush = l2_flusher(dev)
+    # gains and biases on the card, as preprocess_bands_f32 passes them
+    gains_d = torch.from_numpy(gains).to(dev)
+    biases_d = torch.from_numpy(biases).to(dev)
+    q0 = (t01 * (g.levels - 1)).to(torch.uint8).to(torch.int32)
+    calls = {
+        "fused_calibrate_stretch": (
+            lambda: kernels.fused_calibrate_stretch(scene16_d, gains_d,
+                                                    biases_d),
+            lambda: kernels.fused_calibrate_stretch_plain(
+                scene16_d, gains_d, biases_d), "calibrate_stretch_kernel"),
+        "fused_spectral_indices": (
+            lambda: kernels.fused_spectral_indices(b01),
+            lambda: kernels.fused_spectral_indices_plain(b01),
+            "spectral_indices_kernel"),
+        "glcm_grid": (
+            lambda: kernels.glcm_grid(q0, g.levels, g.window_size,
+                                      g.step_size, offsets),
+            lambda: kernels.glcm_grid_plain(q0, g.levels, g.window_size,
+                                            g.step_size, offsets),
+            "glcm_kernel"),
+    }
+    ms_k = {k: cold_ms(fn, flush) for k, (fn, _, _) in calls.items()}
+    # the kernels alone, from a profiler trace
+    kernel_only = {k: kernel_device_ms(fn, name, flush)
+                   for k, (fn, _, name) in calls.items()}
+    plain = {k: cold_ms(fn, flush, 3 if k == "glcm_grid" else 10)
+             for k, (_, fn, _) in calls.items()}
+    n_i = (HEIGHT - g.window_size) // g.step_size + 1
+    n_j = (WIDTH - g.window_size) // g.step_size + 1
+    pairs = sum((g.window_size - abs(dr)) * (g.window_size - abs(dc))
+                for dr, dc in offsets) * n_i * n_j
+    # the GLCM reads only the pixels its windows cover
+    covered = (((n_i - 1) * g.step_size + g.window_size)
+               * ((n_j - 1) * g.step_size + g.window_size))
+    sizes = {   # bytes moved (each input read once, output written once), ops
+        "fused_calibrate_stretch": (BANDS * n * (2 + 4), BANDS * n * 5),
+        "fused_spectral_indices": (n * (5 + 7) * 4, n * 40),
+        "glcm_grid": (covered * 4 + n_i * n_j * 5 * 4, pairs * 8),
+    }
+    notes = {
+        "fused_calibrate_stretch": "no single PyTorch call calibrates and "
+                                   "stretches per band",
+        "fused_spectral_indices": "no single PyTorch call computes the "
+                                  "seven indices",
+        "glcm_grid": "no single PyTorch call computes GLCM properties",
+    }
+    shapes = {"fused_calibrate_stretch": [BANDS, HEIGHT, WIDTH],
+              "fused_spectral_indices": [BANDS, HEIGHT, WIDTH],
+              "glcm_grid": [HEIGHT, WIDTH]}
+    lines = {"fused_calibrate_stretch": ("stretch_indices.cu", 222),
+             "fused_spectral_indices": ("stretch_indices.cu", 66),
+             "glcm_grid": ("glcm.cu", 146)}
+    rows = []
+    for k in STAGE_KERNELS:
+        nbytes, ops = sizes[k]
+        bms, by = bound(nbytes, ops, INT32_OPS_PER_S if k == "glcm_grid"
+                        else F32_OPS_PER_S)
+        src, line = lines[k]
+        rows.append({
+            "name": k, "route": "cuda", "source": f"{CSRC}/{src}",
+            "replaces": f"{PALLAS}:{line}", "launches": launches[k],
+            "max_abs_err": errs[k], "ms": ms_k[k], "plain_ms": plain[k],
+            "bound_ms": bms, "bound_us": bms * 1e3, "bound_by": by,
+            "kernel_only_ms": kernel_only[k], "timing": "L2 flushed before "
+            "each call; ms and plain_ms median of CUDA-event times",
+            "library_ms": None, "library_note": notes[k], "bytes": nbytes,
+            "ops": ops, "shape": shapes[k],
+            "stage1_f32_ms": walls["stage 1, 16-bit"],
+            "stage2_ms": walls["stage 2"]})
+    print("stage kernels, device ms: " + "; ".join(
+        f"{r['name']} {r['ms']:.4f} (the kernel alone "
+        f"{r['kernel_only_ms']}; plain {r['plain_ms']:.4f}; bound "
+        f"{r['bound_us']:.3f} us, {r['bound_by']})" for r in rows))
+
+    # what the two fused kernels would save inside the supervised stack
+    # (printed, not routed: the stack keeps its plain routes)
+    stack_idx = cuda_time_ms(lambda: spectral_indices(bands01), 10)
+    kern_idx = cuda_time_ms(lambda: kernels.fused_spectral_indices(bands01),
+                            20)
+    stack_glcm = cuda_time_ms(lambda: texture.glcm_feature_maps(
+        tex01, g.levels, g.window_size, g.step_size, g.distances, g.angles),
+        5)
+    kern_glcm = cuda_time_ms(lambda: texture.glcm_feature_maps(
+        tex01, g.levels, g.window_size, g.step_size, g.distances, g.angles,
+        backend="kernel"), 10)
+    print(f"supervised stack lead ({BATCH} scenes): indices {stack_idx:.4f} "
+          f"ms plain vs {kern_idx:.4f} ms fused; GLCM maps {stack_glcm:.4f} "
+          f"ms (XLA route) vs {kern_glcm:.4f} ms (glcm_grid); would save "
+          f"{stack_idx - kern_idx + stack_glcm - kern_glcm:.4f} ms per "
+          f"batch")
+    rows[1]["supervised_stack_plain_ms"] = stack_idx
+    rows[1]["supervised_stack_kernel_ms"] = kern_idx
+    rows[2]["supervised_stack_xla_ms"] = stack_glcm
+    rows[2]["supervised_stack_kernel_ms"] = kern_glcm
+    rows[0]["family_ms"] = fam
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -765,6 +1290,11 @@ def main() -> int:
     for key, (g, xc) in tie_and_fractional_forests().items():
         cases[key] = (GemmForest(*(t.to(dev) for t in g)),
                       torch.from_numpy(xc).to(dev))
+    gf20 = GemmForest(*(t.to(dev) for t in wide_forest(stack0)))
+    cases["20 classes, batch stacks"] = (gf20, x_cm)
+    cases["20 classes, random pixels"] = (gf20, torch.from_numpy(
+        np.random.default_rng(SEED + 21).random((19, 4096)).astype(
+            np.float32)).to(dev))
     for label, (g, xc) in cases.items():
         got = kernels.forest_labels(g, xc)
         ref = kernels.gemm_labels_cm(g, xc)
@@ -773,8 +1303,9 @@ def main() -> int:
         err = float((got - ref).abs().max().item())
         check(diff == 0, f"forest_labels [{label}] bit-equal ({diff} differ)")
         errs["forest_labels"] = max(errs.get("forest_labels", 0.0), err)
-        print(f"check forest_labels [{label}] at {tuple(xc.shape)}: "
-              f"bit-equal")
+        print(f"check forest_labels [{label}] at {tuple(xc.shape)}, "
+              f"{g.leaf_dist.shape[1]} classes: bit-equal; "
+              f"{int(torch.unique(ref).numel())} classes in the labels")
 
     # ---- 5. the main path
     def main_path():
@@ -783,8 +1314,10 @@ def main() -> int:
             stretch_hists=hists_d, device=dev)
 
     labels, launches = counted(main_path)
-    check(launches["lut_hist"] > 0 and launches["forest_labels"] > 0,
-          f"both kernels ran on the main path: {launches}")
+    check(launches["lut_hist"] > 0 and launches["forest_labels"] > 0
+          and all(launches[k] == 0 for k in STAGE_KERNELS),
+          f"both kernels ran on the main path, and no stage kernel: "
+          f"{launches}")
     check(labels.shape == (BATCH, HEIGHT, WIDTH)
           and labels.dtype == torch.uint8, "label maps (B, H, W) uint8")
     classes = set(gf_cpu.classes.tolist())
@@ -862,6 +1395,7 @@ def main() -> int:
                         luts_d, params_d, hists_d, rows[0])
     rows.append(single_scene_phases(dev, cfg, scenes, luts, scenes_d,
                                     luts_d))
+    rows += stage_phases(dev, cfg, scenes, luts, scenes_d, luts_d)
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,12 @@ Ported so far:
 * the single-scene rule program ``pipeline.turbo.rule_based_scenes_turbo``
   and the uncapped large-scene route
   ``pipeline.large_scene.rule_based_large_scene``, both through
-  ``pipeline.classify.rule_based_classify`` (CUDA kernel ``cc_labels``).
+  ``pipeline.classify.rule_based_classify`` (CUDA kernel ``cc_labels``);
+* stage 1, ``pipeline.preprocess.preprocess_bands`` (uint8: the exact
+  host LUT; other dtypes: CUDA kernel ``fused_calibrate_stretch``), into
+  stage 2, ``pipeline.features.extract_features`` and
+  ``hierarchical_stack_fused`` (CUDA kernels ``fused_spectral_indices``
+  and ``glcm_grid``).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
 no CUDA device and no explicit device they raise (``backend.py``).

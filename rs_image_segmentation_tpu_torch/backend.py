@@ -9,8 +9,9 @@ package, and cuDNN convolutions default to TF32.
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
@@ -30,3 +31,12 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return device
+
+
+def as_tensor(x, device: torch.device,
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``x`` (a tensor, an array or a sequence) as a contiguous tensor on
+    ``device``, cast to ``dtype`` when one is given."""
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(x))
+    return t.to(device=device, dtype=dtype).contiguous()

@@ -41,9 +41,15 @@
 //     4096 pixels against the JAX package's XLA sum). An f64 sum of a few
 //     hundred f32 values in [0, 1] is exact, so every order rounds to the
 //     same f32 total. Pure leaves (0/1 distributions) are exact either way.
-//   * The argmax keeps the LOWEST index on ties (strict >). The class cap
-//     (kMaxClasses) is checked by the host; a wider forest is refused,
-//     never routed elsewhere.
+//   * The argmax keeps the LOWEST index on ties (strict >).
+//   * Any class count: a thread keeps kChunk f64 totals in registers and,
+//     past kChunk classes (the kWide instance), walks the trees once per
+//     chunk of kChunk classes, keeping a running best across chunks. The
+//     chunks go in ascending class order and a later chunk wins only with
+//     a strictly larger total, so ties still go to the lowest index; each
+//     class's sum keeps its tree order, so the labels do not depend on the
+//     chunking. A forest of up to kChunk
+//     classes takes the instance with one walk, as before the chunks.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -51,8 +57,11 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxClasses = 16;
+constexpr int kChunk = 16;
 
+// kWide = false: at most kChunk classes, one walk of the trees (the
+// main path's forests); kWide = true: one walk per chunk of kChunk classes.
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads)
 forest_labels_kernel(const float* __restrict__ x,
                      const int4* __restrict__ nodes,
@@ -69,32 +78,37 @@ forest_labels_kernel(const float* __restrict__ x,
   const float* xp = x + b * n_features * n + p;
   for (int f = 0; f < n_features; ++f) s_x[f * kThreads + tid] = xp[f * n];
 
-  double total[kMaxClasses];
-#pragma unroll
-  for (int c = 0; c < kMaxClasses; ++c) total[c] = 0.0;
-
-  for (int t = 0; t < n_trees; ++t) {
-    int node = __ldg(&roots[t]);
-    while (node >= 0) {
-      const int4 nd = __ldg(&nodes[node]);
-      node = s_x[nd.x * kThreads + tid] <= __int_as_float(nd.y) ? nd.z : nd.w;
-    }
-    const float* d = leaf_dist + (long long)(~node) * n_classes;
-#pragma unroll
-    for (int c = 0; c < kMaxClasses; ++c) {
-      if (c < n_classes) total[c] += static_cast<double>(__ldg(&d[c]));
-    }
-  }
-
   int best = 0;
-  float best_v = static_cast<float>(total[0]) * inv_trees;
+  float best_v = 0.0f;
+  const int n_chunks = kWide ? (n_classes + kChunk - 1) / kChunk : 1;
+  for (int chunk = 0; chunk < n_chunks; ++chunk) {
+    const int c0 = chunk * kChunk;
+    double total[kChunk];
 #pragma unroll
-  for (int c = 1; c < kMaxClasses; ++c) {
-    if (c < n_classes) {
-      const float v = static_cast<float>(total[c]) * inv_trees;
-      if (v > best_v) {
-        best_v = v;
-        best = c;
+    for (int c = 0; c < kChunk; ++c) total[c] = 0.0;
+
+    for (int t = 0; t < n_trees; ++t) {
+      int node = __ldg(&roots[t]);
+      while (node >= 0) {
+        const int4 nd = __ldg(&nodes[node]);
+        node = s_x[nd.x * kThreads + tid] <= __int_as_float(nd.y) ? nd.z
+                                                                  : nd.w;
+      }
+      const float* d = leaf_dist + (long long)(~node) * n_classes + c0;
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c) {
+        if (c0 + c < n_classes) total[c] += static_cast<double>(__ldg(&d[c]));
+      }
+    }
+
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) {
+      if (c0 + c < n_classes) {
+        const float v = static_cast<float>(total[c]) * inv_trees;
+        if (c0 + c == 0 || v > best_v) {
+          best_v = v;
+          best = c0 + c;
+        }
       }
     }
   }
@@ -115,21 +129,22 @@ extern "C" int forest_labels_launch(const void* x, const void* nodes,
                                     int n_classes, int n_features,
                                     long long n, int batch, void* out,
                                     void* stream) {
-  if (n_classes < 1 || n_classes > kMaxClasses || n_trees < 1
+  if (n_classes < 1 || n_trees < 1
       || n_features < 1 || n <= 0 || batch <= 0 || batch > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = sizeof(float) * n_features * kThreads;
+  auto kernel = n_classes <= kChunk ? forest_labels_kernel<false>
+                                    : forest_labels_kernel<true>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        forest_labels_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid(static_cast<unsigned>((n + kThreads - 1) / kThreads),
                   static_cast<unsigned>(batch));
-  forest_labels_kernel<<<grid, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const int4*>(nodes),
       static_cast<const int32_t*>(roots), n_trees,
       static_cast<const float*>(leaf_dist),
@@ -137,6 +152,3 @@ extern "C" int forest_labels_launch(const void* x, const void* nodes,
       n_features, n, static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
-
-// Largest class count the kernel takes.
-extern "C" int forest_labels_max_classes() { return kMaxClasses; }

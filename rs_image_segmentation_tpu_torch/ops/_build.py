@@ -4,8 +4,18 @@ Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded with ``ctypes``. The build runs at first
 use, from the package's own sources, into ``_build/`` beside ``csrc/``
 (listed in ``.gitignore``); the library name carries a hash of the source
-and flags, so an edited source never loads a stale build. Nothing here
-runs at import time, so the package imports on hosts without ``nvcc``.
+and of the flags that source gets, so an edited source or flag never
+loads a stale build. Nothing here runs at import time, so the package
+imports on hosts without ``nvcc``.
+
+Flags per source. Every source gets ``NVCC_FLAGS``. The sources in
+``NO_FMA`` (``stretch_indices`` and ``glcm``) compute in floating point and
+are held bit-equal to plain PyTorch versions that round every product, so
+they also get ``--fmad=false``: nvcc would otherwise contract ``a*b + c``
+into one FMA. A new floating-point source held to a plain version joins
+``NO_FMA``. No source gets ``-use_fast_math``: nvcc's defaults
+``-prec-div=true`` and ``-prec-sqrt=true`` keep ``/`` and ``sqrtf`` IEEE
+correctly rounded, as PyTorch's are.
 """
 
 from __future__ import annotations
@@ -23,9 +33,11 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("lut_hist", "forest_labels", "ccmin_prop", "hist_keep")
+KERNELS = ("lut_hist", "forest_labels", "ccmin_prop", "hist_keep",
+           "stretch_indices", "glcm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+NO_FMA = ("stretch_indices", "glcm")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -40,10 +52,15 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def flags(name: str) -> tuple:
+    """The nvcc flags ``csrc/<name>.cu`` builds with."""
+    return NVCC_FLAGS + (("--fmad=false",) if name in NO_FMA else ())
+
+
 def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -63,7 +80,7 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *flags(name), "-o", tmp, str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs[name] = (proc, tmp, target)

@@ -15,6 +15,12 @@ version.
 * ``hist_dense`` and ``keep_lut`` (``csrc/hist_keep.cu``) replace
   ``hist_dense_pallas`` and ``keep_lut_pallas``: per-mask counts of dense
   ids, and the keep bit of each pixel's id.
+* ``fused_calibrate_stretch`` and ``fused_spectral_indices``
+  (``csrc/stretch_indices.cu``) replace the Pallas functions of the same
+  names: stage 1's calibrate + min-max stretch, and the seven spectral
+  indices in one pass.
+* ``glcm_grid`` (``csrc/glcm.cu``) replaces ``glcm_grid_pallas``: the five
+  GLCM properties of each non-overlapping window, averaged over offsets.
 
 A wrapper takes its plain version only for a tensor on the CPU. For a CUDA
 tensor it launches the kernel on the current stream or raises; nothing
@@ -24,21 +30,31 @@ falls back. Each wrapper counts its launches in ``<wrapper>.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..backend import as_tensor
 from . import _build
+from .indices import spectral_indices
+from .normalize import minmax_stretch_f32
 
 _P = ctypes.c_void_p
 
 
+_FNS: Dict[Tuple[str, str], object] = {}
+
+
 def _call(lib_name: str, fn_name: str, argtypes, *args) -> None:
-    fn = getattr(_build.load(lib_name), fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    fn = _FNS.get((lib_name, fn_name))
+    if fn is None:          # bind once: ctypes lookups cost host time
+        fn = getattr(_build.load(lib_name), fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FNS[(lib_name, fn_name)] = fn
     rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"{fn_name} failed: cudaError_t {rc}")
@@ -275,10 +291,6 @@ def forest_labels(gf, x_cm: torch.Tensor) -> torch.Tensor:
     _require_cuda(x_cm)
     fp, inv_trees = _packed_on(gf, x_cm.device)
     n_classes = fp["leaf_dist"].shape[1]
-    max_classes = _build.load("forest_labels").forest_labels_max_classes()
-    _require(n_classes <= max_classes,
-             f"the forest kernel takes at most {max_classes} classes, "
-             f"not {n_classes}")
     x3 = x_cm if x_cm.dim() == 3 else x_cm[None]
     batch, _, n = x3.shape
     out = torch.empty((batch, n), dtype=torch.int32, device=x_cm.device)
@@ -542,3 +554,260 @@ def keep_lut(ids: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
 
 
 keep_lut.launches = 0
+
+
+# ------------------------------------- fused_calibrate_stretch, fused_indices
+
+_DN_CODES = {torch.uint8: 0, torch.uint16: 1, torch.float32: 2}
+
+
+def _dn_planes(bands: torch.Tensor) -> torch.Tensor:
+    """(C, H, W) DNs in a dtype the kernel reads (uint8, uint16, f32);
+    any other dtype goes to f32, as the JAX function's ``astype``."""
+    _require(bands.dim() == 3, "bands must be a (C, H, W) tensor")
+    return bands if bands.dtype in _DN_CODES else bands.to(torch.float32)
+
+
+def _per_band(v, bands: torch.Tensor) -> torch.Tensor:
+    t = as_tensor(v, bands.device, torch.float32).reshape(-1)
+    _require(t.numel() == bands.shape[0], "one gain and bias per band")
+    return t
+
+
+def fused_calibrate_stretch_plain(bands: torch.Tensor, gains, biases
+                                  ) -> torch.Tensor:
+    """Plain version of :func:`fused_calibrate_stretch`: ``cal = DN * gain
+    + bias`` in f32, then ``ops.normalize.minmax_stretch_f32`` per band,
+    ``(cal - min) * 255 / (max - min)``."""
+    x = _dn_planes(bands)
+    g = _per_band(gains, x)[:, None, None]
+    b = _per_band(biases, x)[:, None, None]
+    return minmax_stretch_f32(x.to(torch.float32) * g + b)
+
+
+def fused_calibrate_stretch(bands: torch.Tensor, gains, biases
+                            ) -> torch.Tensor:
+    """Stage 1 with the identity warp: ``(C, H, W)`` DNs (uint8, uint16 or
+    f32; other dtypes go to f32) and ``(C,)`` gains and biases -> ``(C, H,
+    W)`` f32 in [0, 255]; the caller truncates to uint8. Per band ``cal =
+    DN * gain + bias``, then ``(cal - mn) * 255 / (mx - mn)`` with ``mn``
+    and ``mx`` the band's calibrated extremes, right for negative gains
+    too. A flat band divides by zero, as the JAX path does. Bit-equal to
+    :func:`fused_calibrate_stretch_plain`."""
+    x = _dn_planes(bands)
+    g = _per_band(gains, x)
+    b = _per_band(biases, x)
+    if x.device.type == "cpu":
+        return fused_calibrate_stretch_plain(x, g, b)
+    x = x.contiguous()
+    _require_cuda(x, g, b)
+    c, h, w = x.shape
+    # the DN extremes, outside the kernel as in the TPU version; uint16
+    # has no aminmax, and int32 holds it exactly
+    flat = x.reshape(c, h * w)
+    lo, hi = torch.aminmax(flat.to(torch.int32) if x.dtype == torch.uint16
+                           else flat, dim=1)
+    ends = torch.stack([lo, hi]).to(torch.float32) * g + b
+    mn, mx = torch.aminmax(ends, dim=0)
+    out = torch.empty((c, h, w), dtype=torch.float32, device=x.device)
+    _call("stretch_indices", "calibrate_stretch_launch",
+          [_P, ctypes.c_int, _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong,
+           _P, _P],
+          x.data_ptr(), _DN_CODES[x.dtype], g.data_ptr(), b.data_ptr(),
+          mn.data_ptr(), mx.data_ptr(), c, h * w, out.data_ptr(),
+          _stream(x.device))
+    fused_calibrate_stretch.launches += 1
+    return out
+
+
+fused_calibrate_stretch.launches = 0
+
+INDEX_ORDER = ("ndvi", "evi", "msavi", "ndwi", "mndwi", "ndbi", "bsi")
+
+
+def _index_bands(bands: torch.Tensor) -> torch.Tensor:
+    _require(bands.dim() in (3, 4) and bands.shape[-3] >= 5,
+             "bands must be a (C >= 5, H, W) or (B, C >= 5, H, W) tensor")
+    return bands.to(torch.float32)
+
+
+def fused_spectral_indices_plain(bands: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`fused_spectral_indices`:
+    ``ops.indices.spectral_indices`` stacked in the kernel's order."""
+    idx = spectral_indices(_index_bands(bands))
+    return torch.stack([idx[k] for k in INDEX_ORDER], dim=-3)
+
+
+def fused_spectral_indices(bands: torch.Tensor) -> torch.Tensor:
+    """``(C >= 5, H, W)`` or ``(B, C >= 5, H, W)`` normalised bands -> ``(...,
+    7, H, W)`` f32 [ndvi, evi, msavi, ndwi, mndwi, ndbi, bsi] in one pass;
+    the semantics of ``ops.indices.spectral_indices`` (guarded divide at
+    den > 1e-3, clip to [-1, 1]), bit-equal to
+    :func:`fused_spectral_indices_plain`."""
+    x = _index_bands(bands)
+    if x.device.type == "cpu":
+        return fused_spectral_indices_plain(x)
+    x = x.contiguous()
+    _require_cuda(x)
+    x4 = x if x.dim() == 4 else x[None]
+    batch, n_bands, h, w = x4.shape
+    out = torch.empty((batch, 7, h, w), dtype=torch.float32, device=x.device)
+    _call("stretch_indices", "spectral_indices_launch",
+          [_P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _P, _P],
+          x4.data_ptr(), n_bands, batch, h * w, out.data_ptr(),
+          _stream(x.device))
+    fused_spectral_indices.launches += 1
+    return out if x.dim() == 4 else out[0]
+
+
+fused_spectral_indices.launches = 0
+
+
+# --------------------------------------------------------------- glcm_grid
+
+_GLCM_BLOCKS_GLOBAL = 264       # blocks of the global-count route (2 per SM)
+_MAX_OFFSETS = 16
+
+
+def _check_glcm(q: torch.Tensor, levels: int, window: int, step: int,
+                offsets) -> Tuple[Tuple[int, int], ...]:
+    _require(q.dtype == torch.int32 and q.dim() in (2, 3),
+             "q must be a (H, W) or (B, H, W) int32 tensor")
+    if step != window:
+        raise ValueError("the GLCM kernel supports the reference's "
+                         "non-overlapping grid (step == window) only")
+    offs = tuple((int(dr), int(dc)) for dr, dc in offsets)
+    _require(levels >= 1 and 1 <= window <= min(q.shape[-2:]),
+             "levels >= 1 and a window that fits the band")
+    _require(1 <= len(offs) <= _MAX_OFFSETS
+             and all(abs(dr) < window and abs(dc) < window
+                     for dr, dc in offs),
+             f"1 to {_MAX_OFFSETS} offsets, each inside the window")
+    return offs
+
+
+def _glcm_props(mom: torch.Tensor, hd: torch.Tensor) -> torch.Tensor:
+    """The five properties in f64 from one offset's integer moments: ``mom``
+    (N, 7) int64 [n, S1 .. S6] and ``hd`` (N, levels) counts per |i - j|
+    (``csrc/glcm.cu`` states the formulas). Operation for operation what
+    the kernel does, every divisor a tensor (a CUDA division by a host
+    scalar multiplies by its reciprocal instead)."""
+    n, s1, s2, s3, s4, s5, s6 = mom.unbind(1)
+    levels = hd.shape[1]
+    ok = n > 0
+    nd = torch.where(ok, n, 1).to(torch.float64)
+    d = torch.arange(levels, dtype=torch.int64, device=hd.device)
+    terms = hd.to(torch.float64) / (1 + d * d).to(torch.float64)
+    h = torch.zeros_like(nd)
+    for k in range(levels):             # d ascending, as the kernel sums
+        h = h + terms[:, k]
+    var_num = 2 * n * s4 - s3 * s3
+    cov_num = 4 * n * s5 - s3 * s3
+    flat = var_num == 0
+    corr = torch.where(flat, 1.0, cov_num.to(torch.float64)
+                       / torch.where(flat, 1, var_num).to(torch.float64))
+    energy = (torch.sqrt((2 * s6).to(torch.float64))
+              / torch.where(ok, 2 * n, 1).to(torch.float64))
+    zero = torch.zeros_like(nd)
+    return torch.stack([torch.where(ok, s1.to(torch.float64) / nd, zero),
+                        torch.where(ok, s2.to(torch.float64) / nd, zero),
+                        torch.where(ok, h / nd, zero),
+                        torch.where(ok, energy, zero),
+                        torch.where(ok, corr, 1.0)], dim=1)
+
+
+def glcm_grid_plain(q: torch.Tensor, levels: int, window: int, step: int,
+                    offsets) -> torch.Tensor:
+    """Plain version of :func:`glcm_grid`: the integer moments of each
+    window's pairs with torch ops (``scatter_add`` counts), then
+    :func:`_glcm_props` and the mean over offsets in f64, rounded once."""
+    offs = _check_glcm(q, levels, window, step, offsets)
+    q3 = _stack3(q).to(torch.int64)
+    batch, h, w = q3.shape
+    win = q3.unfold(1, window, step).unfold(2, window, step)
+    n_i, n_j = win.shape[1], win.shape[2]
+    win = win.reshape(-1, window, window)
+    n_win = win.shape[0]
+    ll = levels * levels
+    total = torch.zeros((n_win, 5), dtype=torch.float64, device=q.device)
+    for dr, dc in offs:
+        r0, r1 = max(0, -dr), min(window, window - dr)
+        c0, c1 = max(0, -dc), min(window, window - dc)
+        a = win[:, r0:r1, c0:c1].reshape(n_win, -1)
+        b = win[:, r0 + dr:r1 + dr, c0 + dc:c1 + dc].reshape(n_win, -1)
+        valid = (a >= 0) & (a < levels) & (b >= 0) & (b < levels)
+        v = valid.to(torch.int64)
+        diff = a - b
+        ones = torch.ones_like(a, dtype=torch.int32)
+        cell = torch.where(valid, a * levels + b, ll)
+        cell_t = torch.where(valid, b * levels + a, ll)
+        counts = torch.zeros((n_win, ll + 1), dtype=torch.int32,
+                             device=q.device).scatter_add_(1, cell, ones)
+        s6 = (torch.gather(counts, 1, cell).to(torch.int64)
+              + torch.gather(counts, 1, cell_t).to(torch.int64)) * v
+        hd = torch.zeros((n_win, levels + 1), dtype=torch.int64,
+                         device=q.device).scatter_add_(
+            1, torch.where(valid, diff.abs(), levels), v)[:, :levels]
+        mom = torch.stack([v.sum(1), (diff * diff * v).sum(1),
+                           (diff.abs() * v).sum(1), ((a + b) * v).sum(1),
+                           ((a * a + b * b) * v).sum(1), (a * b * v).sum(1),
+                           s6.sum(1)], dim=1)
+        total = total + _glcm_props(mom, hd)
+    n_off = torch.tensor(float(len(offs)), dtype=torch.float64,
+                         device=q.device)
+    out = (total / n_off).to(torch.float32).reshape(batch, n_i, n_j, 5)
+    return out if q.dim() == 3 else out[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _glcm_counts_in_smem(levels: int) -> bool:
+    """Whether a block's counts at ``levels`` fit the kernel's shared
+    memory (else they go to a global scratch)."""
+    lib = _build.load("glcm")
+    lib.glcm_smem_bytes.restype = ctypes.c_longlong
+    lib.glcm_smem_limit.restype = ctypes.c_longlong
+    return lib.glcm_smem_bytes(levels) <= lib.glcm_smem_limit()
+
+
+def glcm_grid(q: torch.Tensor, levels: int, window: int, step: int,
+              offsets) -> torch.Tensor:
+    """Per-window GLCM properties: ``(H, W)`` or ``(B, H, W)`` int32 levels
+    -> ``(..., n_i, n_j, 5)`` f32 [contrast, dissimilarity, homogeneity,
+    energy, correlation], each window's symmetric, normalised
+    co-occurrence matrix per ``(dr, dc)`` offset, averaged over offsets.
+    Pairs with a level outside ``[0, levels)`` are not counted. Windows
+    must not overlap (``step == window``, as the JAX function requires).
+    Bit-equal to :func:`glcm_grid_plain`; within f32 rounding of
+    ``ops.texture``'s XLA route, except that a window of zero variance
+    gives a correlation of exactly 1."""
+    offs = _check_glcm(q, levels, window, step, offsets)
+    if q.device.type == "cpu":
+        return glcm_grid_plain(q, levels, window, step, offs)
+    q = q.contiguous()
+    _require_cuda(q)
+    batch, h, w = _stack3(q).shape
+    n_i = (h - window) // step + 1
+    n_j = (w - window) // step + 1
+    n_win = batch * n_i * n_j
+    if _glcm_counts_in_smem(levels):
+        scratch, grid = None, n_win
+    else:       # counts too large for shared memory: a zeroed slot a block
+        grid = min(n_win, _GLCM_BLOCKS_GLOBAL)
+        scratch = torch.zeros((grid, levels * levels + levels),
+                              dtype=torch.int32, device=q.device)
+    flat_offs = (ctypes.c_int * (2 * len(offs)))(
+        *[v for pair in offs for v in pair])
+    out = torch.empty((batch, n_i, n_j, 5), dtype=torch.float32,
+                      device=q.device)
+    _call("glcm", "glcm_launch",
+          [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+           ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+           ctypes.c_int, _P, ctypes.c_int, _P, _P],
+          q.data_ptr(), batch, h, w, levels, window, step, flat_offs,
+          len(offs), None if scratch is None else scratch.data_ptr(), grid,
+          out.data_ptr(), _stream(q.device))
+    glcm_grid.launches += 1
+    return out if q.dim() == 3 else out[0]
+
+
+glcm_grid.launches = 0

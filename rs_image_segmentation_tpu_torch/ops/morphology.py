@@ -117,9 +117,10 @@ def closing(x: torch.Tensor, ksize: int, shape: str = "rect") -> torch.Tensor:
     return erode(dilate(x, ksize, shape), ksize, shape)
 
 
-def gradient(x: torch.Tensor, ksize: int) -> torch.Tensor:
-    """Morphological gradient with a rect element: dilate - erode,
-    subtracted in f32 and cast back to ``x``'s dtype (no uint8 wraparound)."""
-    d = dilate(x, ksize).to(torch.float32)
-    e = erode(x, ksize).to(torch.float32)
+def gradient(x: torch.Tensor, ksize: int, shape: str = "rect"
+             ) -> torch.Tensor:
+    """Morphological gradient: dilate - erode, subtracted in f32 and cast
+    back to ``x``'s dtype (no uint8 wraparound)."""
+    d = dilate(x, ksize, shape).to(torch.float32)
+    e = erode(x, ksize, shape).to(torch.float32)
     return (d - e).to(x.dtype)

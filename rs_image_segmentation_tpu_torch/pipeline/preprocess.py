@@ -1,15 +1,108 @@
-"""Host-side stretch preparation for the turbo preamble (numpy only).
+"""Stage 1, preprocessing: radiometric calibration, the affine warp and
+the per-band linear stretch to uint8; and the host stretch tables of the
+turbo preamble.
 
-Counterpart of ``rs_image_segmentation_tpu.pipeline.preprocess``'s
-``calibrated_value_table``, ``build_stretch_lut``, ``build_stretch_params``
-and ``build_stretch_stats``, with identical numpy semantics: an exact f64
-per-DN calibrate+stretch LUT, int32 fixed-point per-band params, and the
-int32 histogram of the stretched scene.
+Counterpart of ``rs_image_segmentation_tpu.pipeline.preprocess``, with the
+same numpy semantics for the host tables: an exact f64 per-DN
+calibrate+stretch LUT, int32 fixed-point per-band params, and the int32
+histogram of the stretched scene. The device routes:
+
+* ``preprocess_bands`` on a uint8 scene with the identity warp: the exact
+  host LUT, applied on the device (bit-equal to the JAX package);
+* any other dtype (16-bit Landsat 8/9 DNs, float rasters) or a real warp:
+  ``preprocess_bands_f32``, which with the identity warp runs the CUDA
+  kernel ``ops.kernels.fused_calibrate_stretch`` and with a warp runs
+  calibrate, ``warp_affine_bilinear`` and ``minmax_stretch_u8`` as plain
+  torch ops.
+
+Entry points run on CUDA unless the caller names another device.
+File I/O (``run_preprocessing_stage``) is not ported yet.
 """
 
 from __future__ import annotations
 
+from typing import Sequence, Tuple
+
 import numpy as np
+import torch
+
+from ..backend import DeviceLike, as_tensor, resolve_device
+from ..ops.kernels import apply_u8_lut, fused_calibrate_stretch
+from ..ops.normalize import minmax_stretch_u8
+from ..ops.resize import warp_affine_bilinear
+
+_IDENTITY = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0)
+
+
+def radiometric_calibration(bands: torch.Tensor, gains: Sequence[float],
+                            biases: Sequence[float]) -> torch.Tensor:
+    """DN -> radiance in f32, per band ``DN * gain + bias``."""
+    g = as_tensor(gains, bands.device, torch.float32)[:, None, None]
+    b = as_tensor(biases, bands.device, torch.float32)[:, None, None]
+    return bands.to(torch.float32) * g + b
+
+
+def preprocess_bands_f32(bands, gains, biases,
+                         matrix: Tuple[float, ...] = _IDENTITY,
+                         device: DeviceLike = None) -> torch.Tensor:
+    """The f32 device route: ``(C, H, W)`` DNs of any dtype -> ``(C, H, W)``
+    uint8. Identity warp: the fused calibrate + stretch kernel, truncated.
+    A real warp: calibrate, ``warp_affine_bilinear``, then
+    ``minmax_stretch_u8`` per band. Truncation boundaries may differ from
+    f64 by one level."""
+    dev = resolve_device(device)
+    x = as_tensor(bands, dev)
+    if tuple(matrix) == _IDENTITY:
+        return fused_calibrate_stretch(x, gains, biases).to(torch.uint8)
+    cal = radiometric_calibration(x, gains, biases)
+    cal = warp_affine_bilinear(cal, np.asarray(matrix).reshape(2, 3))
+    return minmax_stretch_u8(cal)
+
+
+def preprocess_bands(bands, gains, biases,
+                     matrix: Tuple[float, ...] = _IDENTITY,
+                     device: DeviceLike = None) -> torch.Tensor:
+    """Calibrate -> affine warp -> per-band min-max stretch to uint8, the
+    input of stage 2. A uint8 scene with the identity warp (the
+    reference's live path) takes the exact f64 per-DN LUT built on the
+    host and a gather on the device, bit-equal to the reference's numpy
+    math; any other dtype or a real warp takes
+    :func:`preprocess_bands_f32`."""
+    dev = resolve_device(device)
+    dtype = bands.dtype if isinstance(bands, torch.Tensor) else np.asarray(
+        bands).dtype
+    if tuple(matrix) != _IDENTITY or dtype not in (np.uint8, torch.uint8):
+        return preprocess_bands_f32(bands, gains, biases, matrix, dev)
+    arr = (bands.cpu().numpy() if isinstance(bands, torch.Tensor)
+           else np.asarray(bands))
+    lut = build_stretch_lut(arr, gains, biases).astype(np.uint8)
+    return apply_u8_lut(as_tensor(bands, dev),
+                        torch.from_numpy(lut).to(dev))
+
+
+def preprocess_bands_device_lut(bands_u8, calv,
+                                device: DeviceLike = None) -> torch.Tensor:
+    """The LUT route with no per-scene host work: per-band DN histogram,
+    the present DNs' calibrated min and max from ``calv`` (the (C, 256)
+    :func:`calibrated_value_table`), an f32 stretch LUT and a gather, all
+    on the device. Not bit-equal to :func:`preprocess_bands`: f32
+    truncation can land one level below f64 on boundary DNs."""
+    dev = resolve_device(device)
+    x = as_tensor(bands_u8, dev)
+    cv = as_tensor(calv, dev, torch.float32)
+    c = x.shape[0]
+    flat = x.reshape(c, -1).long()
+    hist = torch.zeros((c, 256), dtype=torch.int32, device=dev)
+    hist.scatter_add_(1, flat, torch.ones_like(flat, dtype=torch.int32))
+    present = hist > 0
+    mn = torch.amin(torch.where(present, cv, float("inf")), dim=1,
+                    keepdim=True)
+    mx = torch.amax(torch.where(present, cv, float("-inf")), dim=1,
+                    keepdim=True)
+    # absent DNs below mn go negative and wrap in the cast; no pixel
+    # gathers them
+    lut = ((cv - mn) * 255.0 / (mx - mn)).to(torch.uint8)
+    return apply_u8_lut(x, lut)
 
 
 def calibrated_value_table(gains, biases) -> np.ndarray:

@@ -30,7 +30,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..backend import DeviceLike, resolve_device
+from ..backend import DeviceLike, as_tensor, resolve_device
 from ..core.config import FeatureStageConfig, RuleBasedConfig
 from ..models.forest import GemmForest
 from ..ops.components import remove_small_components_batch
@@ -50,13 +50,6 @@ __all__ = ["apply_u8_lut", "histogram256", "percentiles_from_counts",
 
 
 # ------------------------------------------------------------ primitives
-
-def _on(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    """``x`` (numpy array or tensor) as a contiguous ``dtype`` tensor on
-    ``device``."""
-    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
-    return t.to(device=device, dtype=dtype).contiguous()
-
 
 def percentiles_from_counts(counts: torch.Tensor, values: torch.Tensor,
                             qs: Sequence[float], n: int) -> torch.Tensor:
@@ -171,8 +164,8 @@ def hierarchical_stack_turbo_cm(scene_u8, stretch_lut_u8,
     256) exact stretch LUTs (``pipeline.preprocess.build_stretch_lut``) ->
     (..., 19, H, W) f32 stack on ``device`` (CUDA unless named)."""
     dev = resolve_device(device)
-    scene = _on(scene_u8, dev, torch.uint8)
-    lut = _on(stretch_lut_u8, dev, torch.uint8)
+    scene = as_tensor(scene_u8, dev, torch.uint8)
+    lut = as_tensor(stretch_lut_u8, dev, torch.uint8)
     single = scene.dim() == 3
     if single:
         scene, lut = scene[None], lut[None]
@@ -189,11 +182,11 @@ def _batch_inputs(scenes_u8, stretch_luts_u8, stretch_params, stretch_hists,
     params, as the preamble uses them)."""
     dev = resolve_device(device)
     sp = (None if stretch_params is None
-          else _on(stretch_params, dev, torch.int32))
+          else as_tensor(stretch_params, dev, torch.int32))
     hh = (None if stretch_hists is None or sp is None
-          else _on(stretch_hists, dev, torch.int32))
-    return (_on(scenes_u8, dev, torch.uint8),
-            _on(stretch_luts_u8, dev, torch.uint8), sp, hh)
+          else as_tensor(stretch_hists, dev, torch.int32))
+    return (as_tensor(scenes_u8, dev, torch.uint8),
+            as_tensor(stretch_luts_u8, dev, torch.uint8), sp, hh)
 
 
 def classify_scenes_turbo(scenes_u8, stretch_luts_u8, gf: GemmForest,
@@ -357,8 +350,8 @@ def rule_based_scenes_turbo(scene_u8, stretch_lut_u8,
     ``cc_impl`` picks the connected-components route
     (``ops.components.connected_components_best``)."""
     dev = resolve_device(device)
-    scene = _on(scene_u8, dev, torch.uint8)[None]
-    lut = _on(stretch_lut_u8, dev, torch.uint8)[None]
+    scene = as_tensor(scene_u8, dev, torch.uint8)[None]
+    lut = as_tensor(stretch_lut_u8, dev, torch.uint8)[None]
     planes = [p[0] for p in _rule_front(scene, lut, cfg)]
     return rule_based_classify(*planes, rule_cfg if rule_cfg is not None
                                else RuleBasedConfig(), cc_impl=cc_impl)
