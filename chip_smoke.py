@@ -15,23 +15,30 @@ Phases, in order; any failed check raises and the script exits non-zero:
   4. the supervised path's kernels against their plain PyTorch versions
      on the card, at the path's shapes (bit-equal outputs required),
      with a 20-class forest fitted by the port's trainer beside the path's
-     own (the forest kernel sums classes in chunks of 16);
+     own (the forest kernel sums classes in chunks of 16), and a large
+     forest (100 trees on 2 000 sampled pixels, some 6 000 leaves) whose
+     packed form takes the kernel's global-memory instance;
   5. the supervised path, ``classify_scenes_turbo``, with launch counts
      read around one run, then timed; scene 0 again on the CPU (>= 99.9 %
      label agreement with the card);
-  6. the supervised kernels' numbers;
+  6. the supervised kernels' numbers: back to back, with the L2 flushed
+     before each call, and each kernel alone in a torch.profiler trace
+     (``tools/kernel_times.py``), the large forest's too;
   7. the rule path's kernels against their plain versions on the card,
      bit-equal: the 24 first-stage masks of the batch with their run-rank
-     seeds and ids, speckle masks and a serpentine mask (both
-     connectivities), and ids out of range;
+     seeds and ids, speckle masks, a serpentine mask, a 3 x 599 x 601
+     stack and a 1 x 100001 row (both connectivities), and ids out of
+     range;
   8. the rule path, ``rule_based_scenes_turbo_batch``, with launch counts
      read around one run, class histogram and overflow flags, then timed
      by stage; scene 0 again on the CPU (>= 99.9 % agreement);
-  9. the rule kernels' numbers;
+  9. the rule kernels' numbers, back to back, L2 flushed and alone, with
+     the device time of each of ``ccmin_prop``'s four launches;
  10. ``cc_labels`` against its plain version on the card, bit-equal: the
      four masks scene 0's single-scene graph hands to
      ``connected_components_best``, speckle, a spiral, a serpentine, empty
-     and full masks, a wide striped mask, a stack of four masks (also
+     and full masks, a wide striped mask, a 599 x 601 mask, a 1 x 100001
+     row, a stack of four masks (also
      against each mask on its own), and the four masks of the
      6000 x 6000 scene, at both connectivities; and ``cc_labels`` against
      ``ccmin_prop`` over flat indices;
@@ -44,7 +51,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
      on the CPU (>= 99.9 % agreement) and against the single-scene
      program; (b) a 7 x 6000 x 6000 scene (a reflected tiling of scene
      0), bit-equal to the single-scene program, timed, with its peak
-     device memory; then the ``cc_labels`` numbers at both sizes;
+     device memory; then the ``cc_labels`` numbers at both sizes, with the
+     device time of each of its four launches;
  13. the stage kernels against their plain versions, bit-equal:
      ``fused_spectral_indices`` on the batch's normalised bands and on
      bands whose EVI denominators sit at the 1e-3 guard;
@@ -84,6 +92,10 @@ import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from rs_image_segmentation_tpu_torch.tools.kernel_times import (  # noqa: E402
+    cold_ms, graph_cc_masks, kernel_device_ms, kernel_numbers, l2_flusher,
+    large_forest, mean_numbers, reflected_tiling)
 
 BATCH, BANDS, HEIGHT, WIDTH = 8, 7, 600, 600
 N_TREES = 100
@@ -160,40 +172,18 @@ def wide_stripes() -> np.ndarray:
     return m
 
 
-def reflected_tiling(scene: np.ndarray, size: int) -> np.ndarray:
-    """A (C, size, size) scene from a (C, h, w) one: the scene and its
-    mirror images in a 2 x 2 block, tiled; continuous across every seam."""
-    block = np.concatenate([np.concatenate([scene, scene[:, :, ::-1]], 2),
-                            np.concatenate([scene[:, ::-1],
-                                            scene[:, ::-1, ::-1]], 2)], 1)
-    reps = (1, -(-size // block.shape[1]), -(-size // block.shape[2]))
-    return np.ascontiguousarray(np.tile(block, reps)[:, :size, :size])
-
-
 def stretch(scene: np.ndarray, lut: np.ndarray) -> np.ndarray:
     """The stage-1 artifact of a raw (7, H, W) scene: each band through
     its stretch LUT (host)."""
     return np.stack([lut[c][scene[c]] for c in range(scene.shape[0])])
 
 
-def graph_cc_masks(run):
-    """``run()``, and the masks it hands to
-    ``ops.components.connected_components_best`` with their
-    connectivities."""
-    from rs_image_segmentation_tpu_torch.ops import components
-    seen = []
-    best = components.connected_components_best
-
-    def spy(mask, connectivity=8, impl="auto"):
-        seen.append((mask.clone(), connectivity))
-        return best(mask, connectivity, impl)
-
-    components.connected_components_best = spy
-    try:
-        out = run()
-    finally:
-        components.connected_components_best = best
-    return out, seen
+def timing_keys(nums: dict) -> dict:
+    """The JSON keys of :func:`kernel_numbers`'s result: back to back
+    (``ms_back_to_back``), cold L2 (``cold_ms``), alone in a trace
+    (``kernel_only_ms``, and per launch ``passes``)."""
+    return {"ms_back_to_back": nums["ms"], "cold_ms": nums["cold_ms"],
+            "kernel_only_ms": nums["alone_ms"], "passes": nums["passes"]}
 
 
 def all_kernels():
@@ -250,13 +240,28 @@ def ccmin_cases(stack3, seeds, dev):
     solid = torch.stack([torch.zeros((HEIGHT, WIDTH), dtype=torch.bool),
                          torch.ones((HEIGHT, WIDTH), dtype=torch.bool)]).to(dev)
     solid_v = speckle_v[:2].contiguous()
+    odd, row = (torch.from_numpy(m).to(dev) for m in edge_masks())
+    odd_v, row_v = (torch.from_numpy(rng.integers(
+        i32.min, i32.max, m.shape, dtype=np.int32)).to(dev)
+        for m in (odd, row))
     cases = {}
     for conn in (8, 4):
         cases[f"first stage, conn {conn}"] = (stack3, seeds, conn)
         cases[f"speckle p=0.5, conn {conn}"] = (speckle, speckle_v, conn)
         cases[f"serpentine 300x140, conn {conn}"] = (serp, serp_v, conn)
         cases[f"empty and full, conn {conn}"] = (solid, solid_v, conn)
+        cases[f"odd 599x601, conn {conn}"] = (odd, odd_v, conn)
+        cases[f"one row 1x100001, conn {conn}"] = (row, row_v, conn)
     return cases
+
+
+def edge_masks():
+    """Edge shapes of the union-find: a (3, 599, 601) stack at p = 0.55 (2 x
+    2 blocks cut at the right and bottom edges) and a 1 x 100001 row at
+    p = 0.6 (one row of tiles)."""
+    rng = np.random.default_rng(SEED + 4)
+    return (rng.random((3, HEIGHT - 1, WIDTH + 1)) < 0.55,
+            rng.random((1, 100001)) < 0.6)
 
 
 def rule_phases(dev, cfg, scenes, luts, params, hists, scenes_d, luts_d,
@@ -377,10 +382,17 @@ def rule_phases(dev, cfg, scenes, luts, params, hists, scenes_d, luts_d,
 
     # ---- 9. rule kernel numbers at the first stage's shapes
     n = HEIGHT * WIDTH
+    flush = l2_flusher(dev)
+    nums = {"ccmin_prop": kernel_numbers(
+        lambda: kernels.ccmin_prop(fg3, seeds, 8), flush)}
     cc_ms = cuda_time_ms(lambda: kernels.ccmin_prop(fg3, seeds, 8), 20)
     cc_plain_ms = cuda_time_ms(
         lambda: kernels.ccmin_prop_plain(fg3, seeds, 8), 2, 1)
     table = kernels.hist_dense_plain(ids, bins_hi) >= min3.reshape(-1, 1, 1)
+    nums["hist_dense"] = kernel_numbers(
+        lambda: kernels.hist_dense(ids, bins_hi), flush)
+    nums["keep_lut"] = kernel_numbers(lambda: kernels.keep_lut(ids, table),
+                                      flush)
     hist_ms = cuda_time_ms(lambda: kernels.hist_dense(ids, bins_hi), 20)
     hist_plain_ms = cuda_time_ms(
         lambda: kernels.hist_dense_plain(ids, bins_hi), 3, 1)
@@ -404,6 +416,11 @@ def rule_phases(dev, cfg, scenes, luts, params, hists, scenes_d, luts_d,
           f"(plain {hist_plain_ms:.4f}, bincount {hist_lib_ms:.4f}), "
           f"keep_lut {keep_ms:.4f} (plain {keep_plain_ms:.4f}, gather "
           f"{keep_lib_ms:.4f})")
+    print("rule kernels, device ms (back to back / L2 flushed / alone; per "
+          "launch): " + "; ".join(
+              f"{k} {v['ms']:.4f} / {v['cold_ms']:.4f} / {v['alone_ms']} ("
+              + ", ".join(f"{p} {t:.4f}" for p, t in v["passes"].items())
+              + ")" for k, v in nums.items()))
 
     px = m3 * n
     cc_bytes = px * (1 + 4 + 4)
@@ -429,7 +446,8 @@ def rule_phases(dev, cfg, scenes, luts, params, hists, scenes_d, luts_d,
             "max_abs_err": errs[kname], "ms": ms, "plain_ms": plain,
             "bound_ms": bms, "bound_us": bms * 1e3, "bound_by": by,
             "library_ms": lib, "library_note": lib_note, "bytes": nbytes,
-            "shape": [m3, HEIGHT, WIDTH], "rule_path_ms": batch_ms})
+            "shape": [m3, HEIGHT, WIDTH], "rule_path_ms": batch_ms,
+            **timing_keys(nums[kname])})
     return rows
 
 
@@ -522,6 +540,8 @@ def single_scene_phases(dev, cfg, scenes, luts, scenes_d, luts_d) -> dict:
         "empty": torch.zeros((HEIGHT, WIDTH), dtype=torch.bool, device=dev),
         "full": torch.ones((HEIGHT, WIDTH), dtype=torch.bool, device=dev),
         "wide stripes": torch.from_numpy(wide_stripes()).to(dev),
+        "odd 599x601": torch.from_numpy(edge_masks()[0][0]).to(dev),
+        "one row 1x100001": torch.from_numpy(edge_masks()[1]).to(dev),
         "stack of 4 (p 0.3-0.7)": torch.from_numpy(
             rng.random((4, HEIGHT, WIDTH))
             < np.array([0.3, 0.5, 0.6, 0.7])[:, None, None]).to(dev),
@@ -693,6 +713,17 @@ def single_scene_phases(dev, cfg, scenes, luts, scenes_d, luts_d) -> dict:
             lambda: kernels.cc_labels_plain(m), reps, warmup)
             for m, _ in masks_)
 
+    flush = l2_flusher(dev)
+    nums = {size: mean_numbers([kernel_numbers(
+        lambda m=m: kernels.cc_labels(m), flush, reps, reps, reps)
+        for m, _ in masks_]) for size, masks_, reps in (
+            (HEIGHT, masks, 20), (LARGE, big_masks, 5))}
+    print("cc_labels, device ms per mask (back to back / L2 flushed / alone;"
+          " per launch): " + "; ".join(
+              f"{size}^2 {v['ms']:.4f} / {v['cold_ms']:.4f} / "
+              f"{v['alone_ms']} (" + ", ".join(
+                  f"{p} {t:.4f}" for p, t in v["passes"].items()) + ")"
+              for size, v in nums.items()))
     ms, ms_big = per_mask(masks, 20), per_mask(big_masks, 5)
     plain, plain_big = per_mask_plain(masks, 2, 1), per_mask_plain(
         big_masks, 1, 0)
@@ -717,6 +748,8 @@ def single_scene_phases(dev, cfg, scenes, luts, scenes_d, luts_d) -> dict:
         "bound_ms_6000": bms_big, "bound_by_6000": by_big,
         "bytes_6000": LARGE * LARGE * 5, "shape_6000": [LARGE, LARGE],
         "launches_large_scene": launches_big["cc_labels"],
+        **timing_keys(nums[HEIGHT]),
+        "timing_6000": timing_keys(nums[LARGE]),
         "single_scene_ms": scene_ms, "large_scene_ms_6000": large_ms,
         "single_scene_ms_6000": single_ms, "peak_gb_6000": peak_gb}
 
@@ -794,60 +827,6 @@ def dn16(scene: np.ndarray) -> np.ndarray:
     [0, 257)."""
     noise = np.random.default_rng(SEED + 32).integers(0, 257, scene.shape)
     return scene.astype(np.uint16) * 257 + noise.astype(np.uint16)
-
-
-L2_FLUSH_BYTES = 256 << 20     # over twice the H100's 50 MB L2
-
-
-def l2_flusher(dev):
-    """A call that evicts the L2 (writes ``L2_FLUSH_BYTES``), then spins the
-    card for about half a millisecond, so that the host has enqueued the
-    timed call before the card reaches it."""
-    buf = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
-
-    def flush():
-        buf.zero_()
-        torch.cuda._sleep(1_000_000)
-    return flush
-
-
-def cold_ms(fn, flush, reps: int = 20) -> float:
-    """Median device ms of one call of ``fn`` (CUDA events around it), with
-    the L2 flushed before each call: the inputs come from HBM, as the
-    byte bound assumes."""
-    fn()
-    ts = []
-    for _ in range(reps):
-        flush()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        stop.synchronize()
-        ts.append(start.elapsed_time(stop))
-    return statistics.median(ts)
-
-
-def kernel_device_ms(fn, kernel: str, flush, reps: int = 20):
-    """Device ms of the CUDA kernel named ``kernel`` per call of ``fn``, from
-    a torch.profiler trace of ``reps`` calls, the L2 flushed before each
-    (the kernel alone, without the wrapper's host time and small ops);
-    None when the trace shows no device time for it."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            flush()
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for ev in prof.key_averages():
-        if kernel in ev.key:
-            total += getattr(ev, "device_time_total",
-                             getattr(ev, "cuda_time_total", 0.0))
-    return total / reps / 1e3 if total > 0 else None
 
 
 def stage_phases(dev, cfg, scenes, luts, scenes_d, luts_d) -> list:
@@ -1204,13 +1183,15 @@ def main() -> int:
         return 1
     from rs_image_segmentation_tpu_torch.backend import resolve_device
     from rs_image_segmentation_tpu_torch.core.config import FeatureStageConfig
-    from rs_image_segmentation_tpu_torch.models.forest import GemmForest
+    from rs_image_segmentation_tpu_torch.models.forest import (
+        GEMM_MAX_LEAVES, GemmForest)
     from rs_image_segmentation_tpu_torch.ops import _build, kernels
     from rs_image_segmentation_tpu_torch.pipeline import turbo
     from rs_image_segmentation_tpu_torch.tools.fixtures import (
         rule_forest, stretch_stats_batch, synthetic_scenes)
     from rs_image_segmentation_tpu_torch.utils.timing import cuda_time_ms
 
+    t_start = time.perf_counter()
     # ---- 1. device and build
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1295,6 +1276,19 @@ def main() -> int:
     cases["20 classes, random pixels"] = (gf20, torch.from_numpy(
         np.random.default_rng(SEED + 21).random((19, 4096)).astype(
             np.float32)).to(dev))
+    t0 = time.perf_counter()
+    gf_big = GemmForest(*(t.to(dev) for t in large_forest(stack0)))
+    big_leaves = gf_big.path.shape[1]
+    check(4000 <= big_leaves <= GEMM_MAX_LEAVES
+          and kernels.forest_instance(gf_big) == "global"
+          and kernels.forest_instance(gf) == "shared",
+          f"the large forest ({big_leaves} leaves) takes the global-memory "
+          f"instance, the path's forest the shared-memory one")
+    print(f"large forest: {big_leaves} leaves, fitted and packed in "
+          f"{time.perf_counter() - t0:.2f} s; instances: large "
+          f"{kernels.forest_instance(gf_big)}, path's "
+          f"{kernels.forest_instance(gf)}")
+    cases["large forest, batch stacks"] = (gf_big, x_cm)
     for label, (g, xc) in cases.items():
         got = kernels.forest_labels(g, xc)
         ref = kernels.gemm_labels_cm(g, xc)
@@ -1361,6 +1355,20 @@ def main() -> int:
     forest_ops = decisions + BATCH * n * (N_TREES * n_classes + n_classes)
     forest_bytes = x_cm.numel() * 4 + BATCH * n * 4
     forest_ms = cuda_time_ms(lambda: kernels.forest_labels(gf, x_cm), 5, 1)
+    # cold L2 and alone in a trace, rows 1 and 2
+    flush = l2_flusher(dev)
+    lut_nums = kernel_numbers(lambda: kernels.lut_hist(
+        scenes_d, luts_d, sp=params_d, skip_hist=True), flush)
+    forest_nums = kernel_numbers(lambda: kernels.forest_labels(gf, x_cm),
+                                 flush, 5, 10, 5)
+    big_nums = kernel_numbers(lambda: kernels.forest_labels(gf_big, x_cm),
+                              flush, 3, 5, 3)
+    big_decisions = fired_decisions(gf_big, x_cm)
+    print(f"forest_labels, device ms per batch (back to back / L2 flushed "
+          f"/ alone): path's forest {forest_nums['ms']:.4f} / "
+          f"{forest_nums['cold_ms']:.4f} / {forest_nums['alone_ms']}; large "
+          f"forest ({big_leaves} leaves) {big_nums['ms']:.4f} / "
+          f"{big_nums['cold_ms']:.4f} / {big_nums['alone_ms']}")
     parts = turbo._preamble(scenes_d, luts_d, params_d, hists_d)
     stack_ms = cuda_time_ms(lambda: turbo._stack_cm_from_parts(*parts, cfg),
                             5, 1)
@@ -1376,12 +1384,19 @@ def main() -> int:
              "torch.gather over (planes, 256) f32 tables with int64 indices "
              "widened beforehand (no histogram)",
              bound(lut_bytes, planes * n), 395,
-             {"bytes": lut_bytes, "ops": planes * n}),
+             {"bytes": lut_bytes, "ops": planes * n,
+              **timing_keys(lut_nums)}),
             ("forest_labels", forest_ms, forest_plain_ms, None,
              "no single PyTorch call computes a forest's labels",
              bound(forest_bytes, forest_ops), 647,
              {"bytes": forest_bytes, "ops": forest_ops,
-              "fired_decisions": decisions})):
+              "fired_decisions": decisions, **timing_keys(forest_nums),
+              "large_forest": {
+                  "leaves": big_leaves,
+                  "instance": kernels.forest_instance(gf_big),
+                  "bound_ms": bound(forest_bytes, big_decisions + BATCH * n
+                                    * (N_TREES * n_classes + n_classes))[0],
+                  **timing_keys(big_nums)}})):
         rows.append({
             "name": kname, "route": "cuda",
             "source": f"{CSRC}/{kname}.cu", "replaces": f"{PALLAS}:{line}",
@@ -1396,6 +1411,8 @@ def main() -> int:
     rows.append(single_scene_phases(dev, cfg, scenes, luts, scenes_d,
                                     luts_d))
     rows += stage_phases(dev, cfg, scenes, luts, scenes_d, luts_d)
+    print(f"chip_smoke: every check passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

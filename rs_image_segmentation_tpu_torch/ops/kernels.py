@@ -198,24 +198,23 @@ def gemm_labels_cm(gf, x_cm: torch.Tensor) -> torch.Tensor:
 
 
 _UNSET = np.iinfo(np.int32).max
+FOREST_GROUP = 4        # trees walked together (kGroup, csrc/forest_labels.cu)
+FOREST_SHARED_BYTES = 96 * 1024   # records + leaf table kept in shared memory
+_FEATURE_BITS = 10      # a record's low bits: its feature; the rest: its kids
 
 
-def pack_forest(gf) -> Dict[str, np.ndarray]:
-    """The kernel's tree form of a GemmForest (host numpy).
-
-    ``nodes``: (M, 4) int32 records ``{feature, threshold bits, left,
-    right}``; ``left`` is taken on ``x <= thr`` (path sign +1). A child
-    ``>= 0`` is an internal node, a child ``< 0`` is the leaf ``~child``.
-    ``roots``: (T,) int32 per tree in order of its first leaf; a root
-    ``< 0`` is a one-leaf tree. Plus ``leaf_dist`` and ``classes``.
+def _tree_links(gf) -> Tuple[np.ndarray, list]:
+    """The GemmForest's leaf paths as child links, checked against the
+    kernel's contract: ``(child, roots)``. ``child[m, 0]`` is taken on
+    ``x <= thr`` (path sign +1), ``child[m, 1]`` on ``x > thr``; a child
+    ``>= 0`` is a node, a child ``< 0`` the leaf ``~child``. ``roots`` has
+    one entry per tree, in order of its first leaf; a root ``< 0`` is a
+    one-leaf tree.
 
     The links come from the leaves' paths, each read root first (ascending
-    node column: the columns are numbered in preorder). A walk from a root
-    then reaches exactly the leaf whose decisions all agree, the one that
-    fires in the dense form. Raises when the GemmForest is outside the
-    kernel's contract: a selector column on a leaf path that is not
-    one-hot, a path_len that is not its path's length, or paths that do
-    not form binary trees."""
+    node column: the columns are numbered in preorder). Raises when a
+    selector column on a leaf path is not one-hot, a path_len is not its
+    path's length, or the paths do not form binary trees."""
     sel = gf.selector.cpu().numpy()
     path = gf.path.cpu().numpy()
     path_len = gf.path_len.cpu().numpy()
@@ -246,35 +245,145 @@ def pack_forest(gf) -> Dict[str, np.ndarray]:
              and np.unique(targets).size == targets.size
              and not np.isin(list(roots), targets).any(),
              "the leaf paths do not form binary trees")
-    nodes = np.zeros((m, 4), np.int32)
-    nodes[:, 0] = sel.argmax(axis=0)
-    nodes[:, 1] = gf.thresholds.cpu().numpy().astype(np.float32).view(np.int32)
-    nodes[used, 2:] = inner
+    return child, list(roots)
+
+
+def pack_forest(gf) -> Dict[str, np.ndarray]:
+    """The kernel's form of a GemmForest (host numpy): fixed-depth walks of
+    ``FOREST_GROUP`` trees at a time (see ``csrc/forest_labels.cu``).
+
+    The trees go in groups of ``FOREST_GROUP`` in tree order; a short last
+    group is filled with trees whose one leaf is an all-zero row. Each
+    group has a depth, its deepest tree's, and every tree of the group is
+    padded to it, so a walk takes exactly that many steps:
+
+    * ``records``: (R, 2) int32 ``{feature | kids << 10, threshold
+      bits}``. A record's children are the adjacent slots ``kids`` (taken
+      on ``x <= thr``) and ``kids + 1``: records while steps remain, rows
+      of the leaf table after the group's last step. A padding record
+      (under a leaf that is shallower than its group) has feature 0,
+      threshold 0 and two equal children.
+    * ``leaf_table``: (C', rows) f64, class major: row r of the walk is
+      column r, one leaf's distribution (a padded leaf has two equal
+      columns; the filler trees' column is zero). C' pads the C classes
+      with zeros to the kernel's chunk: 4 up to 4 classes, 8 up to 8, else
+      a multiple of 16.
+    * ``roots``: (groups * FOREST_GROUP,) int32, each tree's first slot (a
+      record, or a row in a group of depth 0); ``depths``: (groups,)
+      int32.
+    * ``classes``; and, for checks, ``record_node`` (R,) (the GemmForest
+      column of each record, -1 for padding) and ``row_leaf`` (rows,) (the
+      leaf of each row, ``L`` for the zero row).
+
+    Within a group the slots are laid out level by level, so the records a
+    warp reads at one step lie close together. Raises when the GemmForest
+    is outside the kernel's contract (see :func:`_tree_links`) or has
+    more than 1024 features."""
+    child, roots = _tree_links(gf)
+    n_features = gf.selector.shape[0]
+    _require(n_features <= 1 << _FEATURE_BITS,
+             f"the kernel takes at most {1 << _FEATURE_BITS} features")
+    feature = gf.selector.cpu().numpy().argmax(axis=0)
+    thr_bits = gf.thresholds.cpu().numpy().astype(np.float32).view(np.int32)
+    n_leaves = gf.path.shape[1]
+    zero_leaf = ~n_leaves                # the filler trees' leaf
+
+    depth_of: Dict[int, int] = {}
+
+    def depth(ref: int) -> int:
+        if ref < 0:
+            return 0
+        if ref not in depth_of:
+            depth_of[ref] = 1 + max(depth(int(child[ref, 0])),
+                                    depth(int(child[ref, 1])))
+        return depth_of[ref]
+
+    trees = roots + [zero_leaf] * (-len(roots) % FOREST_GROUP)
+    records: list = []        # [word0, threshold bits, GemmForest column]
+    rows: list = []           # leaf of each row of the leaf table
+    slot_roots, depths = [], []
+    for g in range(0, len(trees), FOREST_GROUP):
+        group = trees[g:g + FOREST_GROUP]
+        d = max(depth(r) for r in group)
+        depths.append(d)
+        # (slots, ref, steps left): every slot in `slots` gets one content
+        queue = []
+        for ref in group:
+            space = records if d > 0 else rows
+            slot_roots.append(len(space))
+            space.append(None)
+            queue.append(((slot_roots[-1],), ref, d))
+        for slots, ref, left in queue:      # grows while it is read: BFS
+            if left == 0:                   # a leaf: the group's depth
+                for s in slots:
+                    rows[s] = ~ref
+                continue
+            space = records if left > 1 else rows
+            kids = len(space)
+            space.extend([None, None])
+            if ref >= 0:
+                rec = [int(feature[ref]) | kids << _FEATURE_BITS,
+                       int(thr_bits[ref]), ref]
+                queue.append(((kids,), int(child[ref, 0]), left - 1))
+                queue.append(((kids + 1,), int(child[ref, 1]), left - 1))
+            else:
+                rec = [kids << _FEATURE_BITS, 0, -1]
+                queue.append(((kids, kids + 1), ref, left - 1))
+            for s in slots:
+                records[s] = rec
+    _require(max(len(records), len(rows)) < 1 << (32 - _FEATURE_BITS),
+             "the forest has too many slots for the kernel's records")
+    rec = np.asarray(records, np.int64).reshape(-1, 3)
+    n_classes = gf.leaf_dist.shape[1]
+    width = (4 if n_classes <= 4 else 8 if n_classes <= 8
+             else -(-n_classes // 16) * 16)
+    dist = np.zeros((n_leaves + 1, width))      # the last row: the zero leaf
+    dist[:n_leaves, :n_classes] = gf.leaf_dist.cpu().numpy()
+    row_leaf = np.asarray(rows, np.int64)
     return {
-        "nodes": nodes,
-        "roots": np.asarray(list(roots), np.int32),
-        "leaf_dist": np.ascontiguousarray(
-            gf.leaf_dist.cpu().numpy().astype(np.float32)),
+        "records": np.ascontiguousarray(
+            rec[:, :2].astype(np.uint32).view(np.int32)),
+        "leaf_table": np.ascontiguousarray(dist[row_leaf].T),
+        "roots": np.asarray(slot_roots, np.int32),
+        "depths": np.asarray(depths, np.int32),
         "classes": gf.classes.cpu().numpy().astype(np.int32),
+        "record_node": rec[:, 2].astype(np.int32),
+        "row_leaf": row_leaf.astype(np.int32),
     }
 
 
+_KERNEL_FOREST = ("records", "leaf_table", "roots", "depths", "classes")
 _PACKED: Dict[Tuple[int, str], tuple] = {}
 
 
 def _packed_on(gf, device: torch.device) -> Tuple[Dict[str, torch.Tensor],
                                                   float]:
-    """``pack_forest(gf)`` on ``device`` and ``inv_trees`` as a host float,
-    cached by buffer identity."""
+    """The arrays of ``pack_forest(gf)`` that the kernel reads, on
+    ``device``, and ``inv_trees`` as a host float, cached by buffer
+    identity."""
     key = (id(gf.path), str(device))
     hit = _PACKED.get(key)
     if hit is None:
-        packed = {k: torch.from_numpy(v).to(device)
-                  for k, v in pack_forest(gf).items()}
+        packed = pack_forest(gf)
+        packed = {k: torch.from_numpy(packed[k]).to(device)
+                  for k in _KERNEL_FOREST}
         # a strong reference to the keyed buffer: a recycled id() of a
         # collected tensor would otherwise serve the wrong forest
         hit = _PACKED[key] = (gf.path, packed, float(gf.inv_trees))
     return hit[1], hit[2]
+
+
+def _instance(packed: Dict[str, torch.Tensor]) -> str:
+    nbytes = sum(packed[k].numel() * packed[k].element_size()
+                 for k in ("records", "leaf_table"))
+    return "shared" if nbytes <= FOREST_SHARED_BYTES else "global"
+
+
+def forest_instance(gf) -> str:
+    """Which instance of the forest kernel ``gf`` takes: ``"shared"`` when
+    its records and leaf table take at most ``FOREST_SHARED_BYTES`` (they
+    are then staged in shared memory), else ``"global"``."""
+    return _instance(_packed_on(gf, torch.device("cpu"))[0])
 
 
 def forest_labels(gf, x_cm: torch.Tensor) -> torch.Tensor:
@@ -290,17 +399,21 @@ def forest_labels(gf, x_cm: torch.Tensor) -> torch.Tensor:
         return gemm_labels_cm(gf, x_cm)
     _require_cuda(x_cm)
     fp, inv_trees = _packed_on(gf, x_cm.device)
-    n_classes = fp["leaf_dist"].shape[1]
+    n_cols, n_rows = fp["leaf_table"].shape
     x3 = x_cm if x_cm.dim() == 3 else x_cm[None]
     batch, _, n = x3.shape
     out = torch.empty((batch, n), dtype=torch.int32, device=x_cm.device)
     _call("forest_labels", "forest_labels_launch",
-          [_P, _P, _P, ctypes.c_int, _P, _P, ctypes.c_float, ctypes.c_int,
-           ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P, _P],
-          x3.data_ptr(), fp["nodes"].data_ptr(), fp["roots"].data_ptr(),
-          fp["roots"].numel(), fp["leaf_dist"].data_ptr(),
-          fp["classes"].data_ptr(), inv_trees, n_classes, n_features, n,
-          batch, out.data_ptr(), _stream(x_cm.device))
+          [_P, _P, ctypes.c_int, _P, ctypes.c_int, _P, _P, ctypes.c_int,
+           ctypes.c_int, _P, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+           ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P,
+           _P],
+          x3.data_ptr(), fp["records"].data_ptr(), fp["records"].shape[0],
+          fp["leaf_table"].data_ptr(), n_rows, fp["roots"].data_ptr(),
+          fp["depths"].data_ptr(), fp["depths"].numel(), FOREST_GROUP,
+          fp["classes"].data_ptr(), inv_trees, fp["classes"].numel(), n_cols,
+          n_features, n, batch, int(_instance(fp) == "shared"),
+          out.data_ptr(), _stream(x_cm.device))
     forest_labels.launches += 1
     return out if x_cm.dim() == 3 else out[0]
 
@@ -315,6 +428,26 @@ _I32_MAX = torch.iinfo(torch.int32).max
 
 def _stack3(x: torch.Tensor) -> torch.Tensor:
     return x if x.dim() == 3 else x[None]
+
+
+def _cc_buffers(mask: torch.Tensor, connectivity: int):
+    """``(m, h, w, out, scratch, device)`` of a union-find launch: the int32
+    output of the mask's shape, and the int32 scratch, a parent and a
+    minimum per node, where a node is a 2 x 2 pixel block for
+    8-connectivity and a pixel for 4 (``csrc/ccmin_prop.cu``)."""
+    shape = mask.shape
+    m, h, w = shape if len(shape) == 3 else (1, *shape)
+    tile_rows = 64 if connectivity == 8 else 32     # pixel rows per tile
+    _require(m * h * w < 2 ** 31 and m <= 65535
+             and -(-h // tile_rows) <= 65535,
+             "the kernel takes fewer than 2**31 pixels, 65535 masks and "
+             "65535 rows of tiles")
+    dev = mask.device
+    b = 2 if connectivity == 8 else 1
+    out = torch.empty(shape, dtype=torch.int32, device=dev)
+    scratch = torch.empty(2 * m * -(-h // b) * -(-w // b),
+                          dtype=torch.int32, device=dev)
+    return m, h, w, out, scratch, dev
 
 
 def _check_mask(mask: torch.Tensor, connectivity: int) -> None:
@@ -409,16 +542,12 @@ def ccmin_prop(mask: torch.Tensor, values: torch.Tensor,
     if mask.device.type == "cpu":
         return ccmin_prop_plain(mask, values, connectivity)
     _require_cuda(mask, values)
-    m, h, w = _stack3(mask).shape
-    _require(m * h * w < 2 ** 31 and m <= 65535,
-             "the kernel takes fewer than 2**31 pixels and 65535 masks")
-    out = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
-    minv = torch.empty_like(out)
+    m, h, w, out, scratch, dev = _cc_buffers(mask, connectivity)
     _call("ccmin_prop", "ccmin_prop_launch",
           [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
            ctypes.c_int, _P],
-          mask.data_ptr(), values.data_ptr(), out.data_ptr(), minv.data_ptr(),
-          m, h, w, connectivity, _stream(mask.device))
+          mask.data_ptr(), values.data_ptr(), out.data_ptr(),
+          scratch.data_ptr(), m, h, w, connectivity, _stream(dev))
     ccmin_prop.launches += 1
     return out
 
@@ -453,17 +582,12 @@ def cc_labels(mask: torch.Tensor, connectivity: int = 8) -> torch.Tensor:
     if mask.device.type == "cpu":
         return cc_labels_plain(mask, connectivity)
     _require_cuda(mask)
-    m, h, w = _stack3(mask).shape
-    _require(m * h * w < 2 ** 31 and m <= 65535,
-             "the kernel takes fewer than 2**31 pixels and 65535 masks")
-    out = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
-    # one mask: the labels are the compressed parents, no scratch needed
-    parent = out if m == 1 else torch.empty_like(out)
+    m, h, w, out, scratch, dev = _cc_buffers(mask, connectivity)
     _call("ccmin_prop", "cc_labels_launch",
           [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
            ctypes.c_int, _P],
-          mask.data_ptr(), out.data_ptr(), parent.data_ptr(), m, h, w,
-          connectivity, _stream(mask.device))
+          mask.data_ptr(), out.data_ptr(), scratch.data_ptr(), m, h, w,
+          connectivity, _stream(dev))
     cc_labels.launches += 1
     return out
 

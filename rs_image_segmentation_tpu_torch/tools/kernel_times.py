@@ -1,0 +1,313 @@
+"""Device times of the forest and union-find kernels at the main paths'
+shapes, three ways: back to back (a mean of calls in a row, whose inputs
+may stay in the 50 MB L2), one call with the L2 flushed (the median of
+CUDA-event times), and each CUDA kernel alone, by name, from a
+``torch.profiler`` trace of calls with the L2 flushed before each.
+
+Measured on one CUDA card, with the ``chip_smoke.py`` inputs (8 synthetic
+scenes of 7 x 600 x 600 from seed 0):
+
+* ``forest_labels`` over the batch's 19-channel stacks with the bundled
+  scale's forest (``tools.fixtures.rule_forest``) and with a large forest
+  (100 trees fitted on ``LARGE_FOREST_SAMPLES`` pixels, some 6 000
+  leaves);
+* ``ccmin_prop`` over the batched rule path's 24 first-stage masks with
+  their run-rank seeds;
+* ``cc_labels`` over the four masks the single-scene rule graph labels,
+  at 600 x 600 and at 6000 x 6000 (a reflected tiling of scene 0).
+
+``--root DIR`` imports the port's package from the checkout at ``DIR``
+(for example an unpacked parent commit), so that two versions of the
+kernels can be timed by one script on one card:
+
+    python3 rs_image_segmentation_tpu_torch/tools/kernel_times.py \\
+        [--root DIR] [--out FILE.json]
+
+The timing helpers (``l2_flusher``, ``cold_ms``, ``trace_ms``,
+``kernel_device_ms``, ``kernel_numbers``) and the fixtures
+(``large_forest``, ``reflected_tiling``, ``graph_cc_masks``) are also used
+by ``chip_smoke.py``. They need a card
+and raise without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from typing import Callable, Dict
+
+import numpy as np
+import torch
+
+L2_FLUSH_BYTES = 256 << 20     # over five times the H100's 50 MB L2
+LARGE_FOREST_SAMPLES = 2000
+BATCH, SIZE, LARGE, SEED = 8, 600, 6000, 0
+
+
+def _need_card() -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError("kernel timing needs a CUDA device")
+
+
+def l2_flusher(dev) -> Callable[[], None]:
+    """A call that evicts the L2 (writes ``L2_FLUSH_BYTES``), then spins the
+    card for about half a millisecond, so that the host has enqueued the
+    timed call before the card reaches it."""
+    _need_card()
+    buf = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+
+    def flush():
+        buf.zero_()
+        torch.cuda._sleep(1_000_000)
+    return flush
+
+
+def cold_ms(fn, flush, reps: int = 20) -> float:
+    """Median device ms of one call of ``fn`` (CUDA events around it), with
+    the L2 flushed before each call: the inputs come from HBM, as the
+    byte bound assumes."""
+    _need_card()
+    fn()
+    ts = []
+    for _ in range(reps):
+        flush()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        ts.append(start.elapsed_time(stop))
+    return statistics.median(ts)
+
+
+def _device_us(ev) -> float:
+    return float(getattr(ev, "device_time_total",
+                         getattr(ev, "cuda_time_total", 0.0)))
+
+
+def _trace(fn, reps: int) -> Dict[str, float]:
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {ev.key: _device_us(ev) for ev in prof.key_averages()
+            if _device_us(ev) > 0}
+
+
+# the flush's kernels (the zero fill and the spin); a wrapper's own zero
+# fill has the same name and is left out with them
+_FLUSH_KERNELS = ("spin_kernel", "FillFunctor")
+
+
+def trace_ms(fn, flush, reps: int = 20) -> Dict[str, float]:
+    """Device ms per call of ``fn`` of each CUDA kernel it launches, by
+    kernel name, from a torch.profiler trace of ``reps`` calls with the L2
+    flushed before each (the kernels alone, without the host's time). The
+    flush's kernels are left out; empty when the trace shows no device
+    time."""
+    _need_card()
+    fn()
+    torch.cuda.synchronize()
+    both = _trace(lambda: (flush(), fn()), reps)
+    return {k: v / reps / 1e3 for k, v in both.items()
+            if not any(f in k for f in _FLUSH_KERNELS)}
+
+
+def kernel_device_ms(fn, kernel: str, flush, reps: int = 20):
+    """Device ms per call of ``fn`` of the CUDA kernels whose names hold
+    ``kernel`` (:func:`trace_ms`); None when the trace shows none."""
+    total = sum(v for k, v in trace_ms(fn, flush, reps).items()
+                if kernel in k)
+    return total if total > 0 else None
+
+
+def short_name(kernel: str) -> str:
+    """``void (anonymous namespace)::cc_tile<2, false>(...)`` ->
+    ``cc_tile<2, false>``."""
+    name = kernel.replace("(anonymous namespace)::", "").split("(")[0]
+    return name.removeprefix("void ").strip()
+
+
+def kernel_numbers(fn, flush, hot_reps: int = 20, cold_reps: int = 20,
+                   trace_reps: int = 20) -> dict:
+    """``fn``'s back-to-back mean ms, its cold-L2 median ms, and its
+    kernels' device ms alone (each, and their sum)."""
+    from rs_image_segmentation_tpu_torch.utils.timing import cuda_time_ms
+    passes: Dict[str, float] = {}
+    for k, v in trace_ms(fn, flush, trace_reps).items():
+        passes[short_name(k)] = passes.get(short_name(k), 0.0) + v
+    return {"ms": cuda_time_ms(fn, hot_reps, 1),
+            "cold_ms": cold_ms(fn, flush, cold_reps),
+            "alone_ms": sum(passes.values()) if passes else None,
+            "passes": passes}
+
+
+def mean_numbers(runs) -> dict:
+    """The mean of several :func:`kernel_numbers` results, pass by pass."""
+    out = {k: statistics.mean(r[k] for r in runs)
+           for k in ("ms", "cold_ms")}
+    alone = [r["alone_ms"] for r in runs]
+    out["alone_ms"] = None if None in alone else statistics.mean(alone)
+    names = sorted({k for r in runs for k in r["passes"]})
+    out["passes"] = {k: statistics.mean(r["passes"].get(k, 0.0)
+                                        for r in runs) for k in names}
+    return out
+
+
+def graph_cc_masks(run):
+    """``run()``, and the masks it hands to
+    ``ops.components.connected_components_best``, with their
+    connectivities."""
+    from rs_image_segmentation_tpu_torch.ops import components
+    seen = []
+    best = components.connected_components_best
+
+    def spy(mask, connectivity=8, impl="auto"):
+        seen.append((mask.clone(), connectivity))
+        return best(mask, connectivity, impl)
+
+    components.connected_components_best = spy
+    try:
+        out = run()
+    finally:
+        components.connected_components_best = best
+    return out, seen
+
+
+def reflected_tiling(scene: np.ndarray, size: int) -> np.ndarray:
+    """A (C, size, size) scene from a (C, h, w) one: the scene and its
+    mirror images in a 2 x 2 block, tiled; continuous across every seam."""
+    block = np.concatenate([np.concatenate([scene, scene[:, :, ::-1]], 2),
+                            np.concatenate([scene[:, ::-1],
+                                            scene[:, ::-1, ::-1]], 2)], 1)
+    reps = (1, -(-size // block.shape[1]), -(-size // block.shape[2]))
+    return np.ascontiguousarray(np.tile(block, reps)[:, :size, :size])
+
+
+def large_forest(stack0: np.ndarray, samples: int = LARGE_FOREST_SAMPLES):
+    """A 100-tree forest fitted by the port's trainer on the rule labels of
+    ``samples`` random pixels of a (19, H, W) stack (seed 7): some 6 000
+    leaves at 2 000 samples, within ``GEMM_MAX_LEAVES``."""
+    from rs_image_segmentation_tpu_torch.core.config import ForestConfig
+    from rs_image_segmentation_tpu_torch.models.forest import (
+        _gemm_for, fit_random_forest)
+    from rs_image_segmentation_tpu_torch.tools.fixtures import rule_labels
+    cfg = ForestConfig()
+    flat = stack0.reshape(stack0.shape[0], -1)
+    pick = np.random.default_rng(7).choice(flat.shape[1], samples,
+                                           replace=False)
+    forest, _ = fit_random_forest(flat[:, pick].T, rule_labels(stack0, pick),
+                                  n_estimators=cfg.n_estimators,
+                                  seed=cfg.seed)
+    gf = _gemm_for(forest, flat.shape[0])
+    if gf is None:
+        raise RuntimeError("the large forest exceeds GEMM_MAX_LEAVES")
+    return gf
+
+
+def measure(dev) -> dict:
+    """Every number of this script's JSON, on ``dev``."""
+    from rs_image_segmentation_tpu_torch.core.config import (
+        CalibrationConfig, FeatureStageConfig, RuleBasedConfig)
+    from rs_image_segmentation_tpu_torch.models.forest import GemmForest
+    from rs_image_segmentation_tpu_torch.ops import components, kernels
+    from rs_image_segmentation_tpu_torch.pipeline import turbo
+    from rs_image_segmentation_tpu_torch.pipeline.preprocess import (
+        build_stretch_lut)
+    from rs_image_segmentation_tpu_torch.tools.fixtures import (
+        rule_forest, stretch_stats_batch, synthetic_scenes)
+
+    cfg = FeatureStageConfig()
+    scenes = synthetic_scenes(BATCH, SIZE, SIZE, seed=SEED)
+    luts, params, hists = stretch_stats_batch(scenes)
+    scenes_d, luts_d, params_d, hists_d = (
+        torch.from_numpy(a).to(dev) for a in (scenes, luts, params, hists))
+    flush = l2_flusher(dev)
+    out = {}
+
+    stacks = turbo.hierarchical_stack_turbo_cm(scenes_d, luts_d, cfg,
+                                               device=dev)
+    x_cm = stacks.reshape(BATCH, 19, SIZE * SIZE)
+    stack0 = stacks[0].cpu().numpy()
+    forests = {"bundled": rule_forest(stack0)[0],
+               "large": large_forest(stack0)}
+    for key, gf_cpu in forests.items():
+        gf = GemmForest(*(t.to(dev) for t in gf_cpu))
+        got = kernels.forest_labels(gf, x_cm)
+        torch.cuda.synchronize()
+        res = kernel_numbers(lambda: kernels.forest_labels(gf, x_cm), flush,
+                             5, 10, 5)
+        res["leaves"] = int(gf.path.shape[1])
+        res["labels_sum"] = int(got.long().sum().item())
+        out[f"forest_labels, {key} forest"] = res
+
+    rc = RuleBasedConfig()
+    nd = turbo._rule_front(scenes_d, luts_d, cfg, params_d, hists_d)
+    stack3, _ = turbo._rule_first_stage(*nd, rc)
+    fg3 = stack3 != 0
+    seeds = components.run_rank_seeds(fg3)
+    out["ccmin_prop, 24 x 600 x 600"] = kernel_numbers(
+        lambda: kernels.ccmin_prop(fg3, seeds, 8), flush)
+
+    def single(raw_d, lut_d):
+        return turbo.rule_based_scenes_turbo(raw_d, lut_d, cfg, device=dev)
+
+    _, masks = graph_cc_masks(lambda: single(scenes_d[0], luts_d[0]))
+    cal = CalibrationConfig()
+    big = reflected_tiling(scenes[0], LARGE)
+    big_lut = build_stretch_lut(big, np.asarray(cal.gains),
+                                np.asarray(cal.biases)).astype(np.uint8)
+    _, big_masks = graph_cc_masks(lambda: single(
+        torch.from_numpy(big).to(dev), torch.from_numpy(big_lut).to(dev)))
+    for key, ms_, reps in ((f"{SIZE} x {SIZE}", masks, 20),
+                           (f"{LARGE} x {LARGE}", big_masks, 5)):
+        out[f"cc_labels, {key}, mean of the graph's four masks"] = \
+            mean_numbers([kernel_numbers(
+                lambda m=m: kernels.cc_labels(m, c), flush, reps, reps, reps)
+                for m, c in ms_])
+    return out
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--root", default=None,
+                        help="checkout whose rs_image_segmentation_tpu_torch "
+                             "package is timed (default: this one)")
+    parser.add_argument("--out", default=None, help="also write the JSON here")
+    args = parser.parse_args(argv)
+    root = os.path.abspath(args.root or os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "..", ".."))
+    sys.path.insert(0, root)
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device", file=sys.stderr)
+        return 1
+    import rs_image_segmentation_tpu_torch as pkg
+    from rs_image_segmentation_tpu_torch.backend import resolve_device
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    numbers = measure(resolve_device(None))
+    result = {"card": smi, "package": os.path.dirname(pkg.__file__),
+              "seconds": time.perf_counter() - t0, "numbers": numbers}
+    for key, r in numbers.items():
+        passes = "; ".join(f"{k} {v:.4f}" for k, v in r["passes"].items())
+        print(f"{key}: back to back {r['ms']:.4f} ms, cold L2 "
+              f"{r['cold_ms']:.4f} ms, alone {r['alone_ms']} ms ({passes})")
+    print(smi)
+    print(json.dumps(result))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

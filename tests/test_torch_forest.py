@@ -96,53 +96,98 @@ def test_flat_forest_carried_across_compiles_identically():
                               if k != "classes" else r), k
 
 
+def _tree_slots(packed, n_trees):
+    """(first slot, steps) of each tree of the packed form, the real trees
+    first, then the filler trees that pad the last group."""
+    group = kernels.FOREST_GROUP
+    slots = [(int(root), int(packed["depths"][t // group]))
+             for t, root in enumerate(packed["roots"])]
+    return slots[:n_trees], slots[n_trees:]
+
+
 @pytest.mark.parametrize("name", list(FIXTURES))
 def test_pack_forest_trees_round_trip_to_path(name):
+    """Walking every record of the packed form back to its leaves rebuilds
+    the GemmForest's path matrix: real records give the decisions, padding
+    records have two equal children and decide nothing."""
     _, _, trees, _, gf, _, _ = _fixture(name)
     tgf = tforest.gemm_forest_from_numpy(_numpy_fields(gf))
     packed = kernels.pack_forest(tgf)
-    nodes = packed["nodes"]
+    words = packed["records"].view(np.uint32)
+    node_of = packed["record_node"]
     path = np.asarray(gf.path.astype(jnp.float32))
     rebuilt = np.zeros_like(path)
     reached = np.zeros(path.shape[1], int)
 
-    def down(at, trail):
-        if at < 0:
-            reached[~at] += 1
+    def down(slot, left, trail):
+        if left == 0:
+            leaf = packed["row_leaf"][slot]
+            reached[leaf] += 1
             for nd, sign in trail:
-                rebuilt[nd, ~at] = sign
+                rebuilt[nd, leaf] = sign
             return
-        down(nodes[at, 2], trail + [(at, 1.0)])
-        down(nodes[at, 3], trail + [(at, -1.0)])
+        kids = int(words[slot, 0] >> 10)
+        if node_of[slot] < 0:                # padding: both sides alike
+            if left > 1:
+                assert np.array_equal(words[kids], words[kids + 1])
+            else:
+                assert packed["row_leaf"][kids] == packed["row_leaf"][kids + 1]
+            down(kids, left - 1, trail)
+            return
+        nd = node_of[slot]
+        assert words[slot, 0] & 1023 == np.asarray(
+            gf.selector.astype(jnp.float32))[:, nd].argmax()
+        assert words[slot, 1].view(np.float32) == np.asarray(
+            gf.thresholds)[nd]
+        down(kids, left - 1, trail + [(nd, 1.0)])
+        down(kids + 1, left - 1, trail + [(nd, -1.0)])
 
-    assert len(packed["roots"]) == trees
-    for root in packed["roots"]:
-        down(root, [])
+    real, fillers = _tree_slots(packed, trees)
+    assert len(fillers) == -trees % kernels.FOREST_GROUP
+    for root, steps in real:
+        down(root, steps, [])
     assert (reached == 1).all()
     np.testing.assert_array_equal(rebuilt, path)
-    sel = np.asarray(gf.selector.astype(jnp.float32))
-    used = np.flatnonzero(path.any(axis=1))
-    assert np.array_equal(nodes[used, 0], sel.argmax(axis=0)[used])
-    assert np.array_equal(nodes[:, 1].view(np.float32),
-                          np.asarray(gf.thresholds))
+    n_leaves = path.shape[1]               # the fillers reach the zero row
+    for root, steps in fillers:
+        reached = np.zeros(n_leaves + 1, int)
+        rebuilt = np.zeros((path.shape[0], n_leaves + 1))
+        down(root, steps, [])
+        assert reached[n_leaves] == 1 and reached.sum() == 1
+    zero_rows = packed["row_leaf"] == n_leaves
+    assert not packed["leaf_table"][:, zero_rows].any()
 
 
-def _walk(packed, inv_trees, xc):
-    """The kernel's per-pixel tree walk rendered in numpy: (F, N) -> (N,)."""
-    nodes, dist = packed["nodes"], packed["leaf_dist"].astype(np.float64)
-    thr = nodes[:, 1].view(np.float32)
+def _walk(packed, inv_trees, n_classes, xc):
+    """The kernel's walk rendered in numpy, (F, N) -> (N,): groups of
+    FOREST_GROUP trees stepping together for the group's depth, each step
+    a record (feature, threshold, kids) and a compare, then the leaf table
+    added in f64 in tree order, rounded once to f32, times inv_trees, the
+    first maximal class over the real (unpadded) classes in chunks of 16."""
+    words = packed["records"].view(np.uint32)
+    table = packed["leaf_table"]               # (C', rows) f64
+    group = kernels.FOREST_GROUP
     pixels = np.arange(xc.shape[1])
-    total = np.zeros((xc.shape[1], dist.shape[1]))
-    for root in packed["roots"]:
-        at = np.full(xc.shape[1], root)
-        while (at >= 0).any():
-            live = at >= 0
-            nd = at[live]
-            le = xc[nodes[nd, 0], pixels[live]] <= thr[nd]
-            at[live] = np.where(le, nodes[nd, 2], nodes[nd, 3])
-        total += dist[~at]
-    total = total.astype(np.float32) * np.float32(inv_trees)
-    return packed["classes"][np.argmax(total, axis=1)]
+    total = np.zeros((table.shape[0], xc.shape[1]))
+    for g, depth in enumerate(packed["depths"]):
+        node = np.repeat(packed["roots"][g * group:(g + 1) * group, None],
+                         xc.shape[1], axis=1)
+        for _ in range(depth):
+            rec = words[node]
+            le = xc[rec[..., 0] & 1023, pixels] <= rec[..., 1].view(np.float32)
+            node = (rec[..., 0] >> 10).astype(np.int64) + np.where(le, 0, 1)
+        for k in range(group):                 # tree order
+            total += table[:, node[k]]
+    total = total[:n_classes].astype(np.float32) * np.float32(inv_trees)
+    best = np.zeros(xc.shape[1], np.int64)
+    best_v = np.full(xc.shape[1], -np.inf, np.float32)
+    for c0 in range(0, n_classes, 16):         # chunks: a later one wins
+        chunk = total[c0:c0 + 16]              # only when strictly larger
+        top = chunk.max(axis=0)
+        take = (top > best_v) | (c0 == 0)
+        best = np.where(take, c0 + chunk.argmax(axis=0), best)
+        best_v = np.where(take, top, best_v)
+    return packed["classes"][best]
 
 
 @pytest.mark.parametrize("name", list(FIXTURES))
@@ -150,8 +195,32 @@ def test_pack_forest_walk_gives_the_plain_labels(name):
     _, _, _, _, gf, xc, _ = _fixture(name)
     tgf = tforest.gemm_forest_from_numpy(_numpy_fields(gf))
     want = kernels.forest_labels(tgf, torch.from_numpy(xc)).numpy()
-    got = _walk(kernels.pack_forest(tgf), float(tgf.inv_trees), xc)
+    got = _walk(kernels.pack_forest(tgf), float(tgf.inv_trees),
+                tgf.leaf_dist.shape[1], xc)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n_classes", [1, 4, 20])
+def test_forest_walk_rendering_matches_gemm_at_class_counts(n_classes):
+    """The kernel's walk at one class (every total one column), four (the
+    main path's 4-wide chunk) and twenty (two 16-wide chunks, padded with
+    zero classes), against gemm_labels_cm on seeded pixels."""
+    rng = np.random.default_rng(40 + n_classes)
+    x = rng.random((90, 19)).astype(np.float32)
+    y = np.concatenate([np.arange(n_classes),
+                        rng.integers(0, n_classes, 90 - n_classes)])
+    flat, _ = tforest.fit_random_forest(x, y, n_estimators=7, seed=3)
+    gf = tforest._gemm_for(flat, 19)
+    assert gf.leaf_dist.shape[1] == n_classes
+    packed = kernels.pack_forest(gf)
+    width = packed["leaf_table"].shape[0]
+    assert width == {1: 4, 4: 4, 20: 32}[n_classes]
+    assert not packed["leaf_table"][n_classes:].any()
+    xc = rng.random((19, 3000)).astype(np.float32)
+    want = kernels.gemm_labels_cm(gf, torch.from_numpy(xc)).numpy()
+    got = _walk(packed, float(gf.inv_trees), n_classes, xc)
+    np.testing.assert_array_equal(got, want)
+    assert len(np.unique(want)) > (n_classes > 1)    # not one class alone
 
 
 def test_pack_forest_refuses_forests_outside_the_kernel_contract():

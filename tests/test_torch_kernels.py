@@ -157,101 +157,202 @@ def test_ccmin_prop_plain_matches_labels_oracle(name, conn):
                                                               conn))
 
 
-def _rendered_roots(mask, conn, tile):
-    """numpy rendering of the union-find passes of ``csrc/ccmin_prop.cu``,
-    run one pixel at a time: the per-tile union-find with the kernel's
-    reduced neighbour rule, then the unions across tile borders. Returns
-    every pixel's stack-global root. Which pairs get united is what the
-    kernel's result depends on; the order of the unions changes only the
-    shape of the trees."""
+def _node_bits(mask, conn):
+    """(M, NH, NW) bits of the union-find's nodes: for 8-connectivity a
+    2 x 2 pixel block (bit 0 its top-left pixel, 1 top-right, 2
+    bottom-left, 3 bottom-right; pixels past the edge 0), for 4 a pixel."""
+    b = 2 if conn == 8 else 1
     m, h, w = mask.shape
-    fg = mask.reshape(-1) != 0
-    parent = np.arange(m * h * w)
+    nh, nw = -(-h // b), -(-w // b)
+    pad = np.zeros((m, nh * b, nw * b), bool)
+    pad[:, :h, :w] = mask != 0
+    bits = np.zeros((m, nh, nw), np.int64)
+    for i in range(b):
+        for j in range(b):
+            bits |= pad[:, i::b, j::b].astype(np.int64) << (2 * i + j)
+    return bits
 
-    def find(x):
-        while parent[x] != x:
-            x = parent[x]
+
+def _joins(bits, nb, dy, dx, conn):
+    """Whether a node joins its neighbour at (dy, dx), one of left (0, -1),
+    up (-1, 0), up-left (-1, -1) and up-right (-1, 1)."""
+    if not (bits and nb):
+        return False
+    if conn == 4:
+        return True
+    need = {(0, -1): (5, 10), (-1, 0): (3, 12), (-1, -1): (1, 8),
+            (-1, 1): (2, 4)}[(dy, dx)]
+    return bool(bits & need[0]) and bool(nb & need[1])
+
+
+def _up_links(b, left, lb, ul, u, ur, conn):
+    """The links to the row above that a node makes itself (the kernel's
+    ``up_links``): a set of (dy, dx); a link is left out when its nodes
+    are joined anyway through the left neighbour of the node's run or a
+    run of the row above."""
+    if conn == 4:
+        return {(-1, 0)} if b and u and not (left and ul) else set()
+    j_ul = _joins(b, ul, -1, -1, 8)
+    j_u = _joins(b, u, -1, 0, 8)
+    via_ul = left and _joins(lb, ul, -1, 0, 8)
+    via_u = left and _joins(lb, u, -1, 1, 8)
+    to_ul = j_ul or via_ul
+    ul_run = _joins(u, ul, 0, -1, 8)
+    to_u = j_u or via_u or (to_ul and ul_run)
+    links = set()
+    if j_ul and not via_ul:
+        links.add((-1, -1))
+    if j_u and not via_u and not (to_ul and ul_run):
+        links.add((-1, 0))
+    if _joins(b, ur, -1, 1, 8) and not (to_u and _joins(ur, u, 0, -1, 8)):
+        links.add((-1, 1))
+    return links
+
+
+def _node_min(mask, values, conn, z, ny, nx):
+    """Minimum over the node's foreground pixels of ``values``, or of their
+    mask-relative indices when ``values`` is None."""
+    b = 2 if conn == 8 else 1
+    h, w = mask.shape[1:]
+    ys, xs = np.nonzero(mask[z, ny * b:ny * b + b, nx * b:nx * b + b])
+    ys, xs = ys + ny * b, xs + nx * b
+    return int((ys * w + xs).min() if values is None
+               else values[z, ys, xs].min())
+
+
+def _rendered_union_find(mask, values, conn, tile):
+    """numpy rendering of the four passes of ``csrc/ccmin_prop.cu``, one
+    thread after another (one order the card may take): the tile pass's
+    shared-memory union-find over ``tile`` x ``tile`` nodes (each node
+    linked to the start of its row run, then united with the row above,
+    halving finds), the border pass's slots with halving finds, the root
+    pass (halving, stored roots, local minima folded into the roots) and
+    the gather. ``values`` None
+    renders cc_labels (minimum mask-relative index). Which pairs get united
+    is what the result depends on; the order changes only the trees."""
+    m, h, w = mask.shape
+    bits = _node_bits(mask, conn)
+    _, nh, nw = bits.shape
+    per = nh * nw
+    parent = np.full(m * per, -1)
+    minv = np.full(m * per, I32_MAX, np.int64)
+    dirs = ([(0, -1), (-1, 0), (-1, -1), (-1, 1)] if conn == 8
+            else [(0, -1), (-1, 0)])
+
+    def at(z, ny, nx):
+        return z * per + ny * nw + nx
+
+    def find(par, x, halve):
+        while par[x] != x:
+            if halve and par[par[x]] != par[x]:
+                par[x] = par[par[x]]
+            x = par[x]
         return x
 
-    def unite(a, b):
-        a, b = find(a), find(b)
-        parent[max(a, b)] = min(a, b)
+    def unite(par, a, c, halve):
+        a, c = find(par, a, halve), find(par, c, halve)
+        par[max(a, c)] = min(a, c)
 
-    def at(z, y, x):
-        return z * h * w + y * w + x
+    # pass 1: each tile on its own
+    for z in range(m):
+        for by in range(0, nh, tile):
+            for bx in range(0, nw, tile):
+                local = {}
+                for ny in range(by, min(by + tile, nh)):
+                    for nx in range(bx, min(bx + tile, nw)):
+                        if bits[z, ny, nx]:
+                            local[at(z, ny, nx)] = at(z, ny, nx)
+                left = {}
+                for g in list(local):       # runs: straight to their start
+                    ny, nx = divmod(g - z * per, nw)
+                    left[g] = nx > bx and _joins(bits[z, ny, nx],
+                                                 bits[z, ny, nx - 1], 0, -1,
+                                                 conn)
+                    if left[g]:
+                        local[g] = local[g - 1]
+                for g in list(local):       # then the row above
+                    ny, nx = divmod(g - z * per, nw)
+                    if ny == by:
+                        continue
 
-    def tile_fg(z, by, bx, ty, tx):
-        y, x = by + ty, bx + tx
-        return (0 <= ty < tile and 0 <= tx < tile and y < h and x < w
-                and fg[at(z, y, x)])
+                    def tb(x, y):           # in the tile, else 0
+                        return (bits[z, y, x] if bx <= x < min(bx + tile, nw)
+                                else 0)
+                    for dy, dx in _up_links(
+                            bits[z, ny, nx], left[g], tb(nx - 1, ny),
+                            tb(nx - 1, ny - 1), tb(nx, ny - 1),
+                            tb(nx + 1, ny - 1), conn):
+                        unite(local, g, at(z, ny + dy, nx + dx), True)
+                for g in local:
+                    r = find(local, g, True)
+                    parent[g] = r
+                    ny, nx = divmod(g - z * per, nw)
+                    minv[r] = min(minv[r], _node_min(mask, values, conn, z,
+                                                     ny, nx))
+    # pass 2: the border slots of each tile, as the kernel numbers them
+    def nb(z, x, y):                        # 0 past the node grid
+        return bits[z, y, x] if 0 <= x < nw and y >= 0 else 0
 
     for z in range(m):
-        for by in range(0, h, tile):
-            for bx in range(0, w, tile):
-                for ty in range(min(tile, h - by)):
-                    for tx in range(min(tile, w - bx)):
-                        if not tile_fg(z, by, bx, ty, tx):
+        for by in range(0, nh, tile):
+            for bx in range(0, nw, tile):
+                slots = ([(0, tx) for tx in range(tile)]
+                         + [(ty, 0) for ty in range(tile)]
+                         + ([(ty, tile - 1) for ty in range(1, tile)]
+                            if conn == 8 else []))
+                for k, (ty, tx) in enumerate(slots):
+                    ny, nx = by + ty, bx + tx
+                    if ny >= nh or nx >= nw or not bits[z, ny, nx]:
+                        continue
+                    b, g = bits[z, ny, nx], at(z, ny, nx)
+                    if k < tile:            # top row
+                        if ny == 0:
                             continue
-                        g = at(z, by + ty, bx + tx)
-                        up, left = g - w, g - 1
-                        l = tile_fg(z, by, bx, ty, tx - 1)
-                        u = tile_fg(z, by, bx, ty - 1, tx)
-                        ul = tile_fg(z, by, bx, ty - 1, tx - 1)
-                        ur = tile_fg(z, by, bx, ty - 1, tx + 1)
-                        if l:
-                            unite(g, left)
-                        if conn == 8:
-                            if not l:
-                                if u:
-                                    unite(g, up)
-                                else:
-                                    if ul:
-                                        unite(g, up - 1)
-                                    if ur:
-                                        unite(g, up + 1)
-                            elif not u and ur:
-                                unite(g, up + 1)
-                        elif u and not (l and ul):
-                            unite(g, up)
-    for z in range(m):
-        for y in range(h):
-            for x in range(w):
-                g = at(z, y, x)
-                tx, ty = x % tile, y % tile
-                if not fg[g]:
-                    continue
-                if tx == 0 and x > 0 and fg[g - 1]:
-                    unite(g, g - 1)
-                if ty == 0 and y > 0 and fg[g - w]:
-                    unite(g, g - w)
-                if conn == 8 and y > 0:
-                    if (tx == 0 or ty == 0) and x > 0 and fg[g - w - 1]:
-                        unite(g, g - w - 1)
-                    if ((tx == tile - 1 or ty == 0) and x + 1 < w
-                            and fg[g - w + 1]):
-                        unite(g, g - w + 1)
-    return np.array([find(g) for g in range(m * h * w)])
+                        lb = nb(z, nx - 1, ny) if tx > 0 else 0
+                        for dy, dx in _up_links(
+                                b, tx > 0 and _joins(b, lb, 0, -1, conn), lb,
+                                nb(z, nx - 1, ny - 1) if conn == 8 else 0,
+                                nb(z, nx, ny - 1),
+                                nb(z, nx + 1, ny - 1) if conn == 8 else 0,
+                                conn):
+                            unite(parent, g, at(z, ny + dy, nx + dx), True)
+                        continue
+                    up_joined = ty > 0 and _joins(b, nb(z, nx, ny - 1), -1, 0,
+                                                  conn)
+                    if k < 2 * tile:        # left column
+                        if nx == 0:
+                            continue
+                        lb, la = nb(z, nx - 1, ny), nb(z, nx - 1, ny - 1)
+                        row_above = up_joined and _joins(
+                            nb(z, nx, ny - 1), la, 0, -1, conn)
+                        if _joins(b, lb, 0, -1, conn) and not (
+                                row_above and _joins(lb, la, -1, 0, conn)):
+                            unite(parent, g, g - 1, True)
+                        if (conn == 8 and ty > 0 and not row_above
+                                and _joins(b, la, -1, -1, 8)):
+                            unite(parent, g, at(z, ny - 1, nx - 1), True)
+                    elif (_joins(b, nb(z, nx + 1, ny - 1), -1, 1, 8)
+                          and not (up_joined and _joins(
+                              nb(z, nx + 1, ny - 1), nb(z, nx, ny - 1), 0,
+                              -1, 8))):
+                        unite(parent, g, at(z, ny - 1, nx + 1), True)
+    # pass 3: the local roots find their roots and fold their minima
+    for g in range(m * per):
+        if minv[g] != I32_MAX:
+            r = find(parent, g, True)
+            parent[g] = r
+            if r != g:
+                minv[r] = min(minv[r], minv[g])
+    # pass 4: the root's minimum at each foreground pixel
+    b = 2 if conn == 8 else 1
+    zz, yy, xx = np.indices(mask.shape)
+    node = zz * per + (yy // b) * nw + xx // b
+    roots = np.array([find(parent, g, False) if parent[g] >= 0 else -1
+                      for g in range(m * per)])
+    return np.where(mask != 0, minv[roots[node]], -1)
 
 
-def _kernel_rendering(mask, values, conn, tile):
-    """The rendered roots, then ccmin_prop's root minima."""
-    fg = mask.reshape(-1) != 0
-    roots = _rendered_roots(mask, conn, tile)
-    vmin = np.full(fg.size, I32_MAX, np.int64)
-    np.minimum.at(vmin, roots[fg], values.reshape(-1)[fg])
-    return np.where(fg, vmin[roots], -1).reshape(mask.shape)
-
-
-def _label_rendering(mask, conn, tile):
-    """The rendered roots, then cc_labels' labelling pass: root minus the
-    mask's base at foreground, -1 at background."""
-    m, h, w = mask.shape
-    roots = _rendered_roots(mask, conn, tile).reshape(mask.shape)
-    base = np.arange(m)[:, None, None] * (h * w)
-    return np.where(mask != 0, roots - base, -1)
-
-
-@pytest.mark.parametrize("tile", [32, 5])
+@pytest.mark.parametrize("tile", [32, 3])
 @pytest.mark.parametrize("conn", [8, 4])
 def test_ccmin_kernel_rendering_matches_plain(conn, tile):
     rng = np.random.default_rng(8)
@@ -261,21 +362,50 @@ def test_ccmin_kernel_rendering_matches_plain(conn, tile):
     ref = kernels.ccmin_prop(torch.from_numpy(mask),
                              torch.from_numpy(values), conn).numpy()
     np.testing.assert_array_equal(
-        _kernel_rendering(mask, values, conn, tile), ref)
+        _rendered_union_find(mask, values, conn, tile), ref)
 
 
-@pytest.mark.parametrize("tile", [32, 5])
+@pytest.mark.parametrize("tile", [32, 3])
 @pytest.mark.parametrize("conn", [8, 4])
 def test_cc_label_rendering_matches_plain(conn, tile):
-    """The labels of a stack of three masks: roots are stack-global, so a
-    label must subtract its mask's base, or masks after the first come
-    out wrong."""
+    """The labels of a stack of three masks: labels are mask-relative, so
+    masks after the first must not carry their stack offset."""
     rng = np.random.default_rng(13)
     mask = rng.random((3, 37, 45)) < np.array([0.5, 0.6, 0.7])[:, None, None]
     mask[1, 10:30, 2:40] = True            # a blob across tile borders
     ref = kernels.cc_labels_plain(torch.from_numpy(mask), conn).numpy()
-    np.testing.assert_array_equal(_label_rendering(mask, conn, tile), ref)
+    np.testing.assert_array_equal(
+        _rendered_union_find(mask, None, conn, tile), ref)
     assert (ref[1:][mask[1:]] < 37 * 45).all()
+
+
+def _edge_mask(name):
+    rng = np.random.default_rng(17)
+    if name == "odd 37 x 41":
+        return rng.random((2, 37, 41)) < 0.55
+    if name == "one row 1 x 97":
+        return rng.random((1, 1, 97)) < 0.6
+    if name == "one column 97 x 1":
+        return rng.random((1, 97, 1)) < 0.6
+    return serpentine_mask(61, 29)[None]     # turns 30 times, many tiles
+
+
+@pytest.mark.parametrize("conn", [8, 4])
+@pytest.mark.parametrize("name", ["odd 37 x 41", "one row 1 x 97",
+                                  "one column 97 x 1", "serpentine 61 x 29"])
+def test_union_find_rendering_on_edge_shapes(name, conn):
+    """Odd sizes (2 x 2 blocks cut at the right and bottom edges), one
+    row, one column, and a serpentine over many 3 x 3-node tiles."""
+    mask = _edge_mask(name)
+    values = np.random.default_rng(18).integers(
+        -10 ** 6, 10 ** 6, mask.shape).astype(np.int32)
+    ref = kernels.ccmin_prop(torch.from_numpy(mask),
+                             torch.from_numpy(values), conn).numpy()
+    np.testing.assert_array_equal(_rendered_union_find(mask, values, conn, 3),
+                                  ref)
+    labels = kernels.cc_labels_plain(torch.from_numpy(mask), conn).numpy()
+    np.testing.assert_array_equal(_rendered_union_find(mask, None, conn, 3),
+                                  labels)
 
 
 def test_hist_dense_and_keep_lut_plain_match_pallas_interpret():
