@@ -28,12 +28,16 @@ Phases, in order; any failed check raises and the script exits non-zero:
      bit-equal: the 24 first-stage masks of the batch with their run-rank
      seeds and ids, speckle masks, a serpentine mask, a 3 x 599 x 601
      stack and a 1 x 100001 row (both connectivities), and ids out of
-     range;
+     range; ``hist_dense`` also on a single id, an all-background stack,
+     uniform random ids, negative ids and ids >= bins, ``n % 4 != 0``, a
+     base offset by one element, bins 128, bins past a cluster's shared
+     memory and M = 1, each on the instance the wrapper must pick;
   8. the rule path, ``rule_based_scenes_turbo_batch``, with launch counts
      read around one run, class histogram and overflow flags, then timed
      by stage; scene 0 again on the CPU (>= 99.9 % agreement);
   9. the rule kernels' numbers, back to back, L2 flushed and alone, with
-     the device time of each of ``ccmin_prop``'s four launches;
+     the device time of each of ``ccmin_prop``'s four launches, and the
+     kernels one ``hist_dense`` call launches (its kernel, no memset);
  10. ``cc_labels`` against its plain version on the card, bit-equal: the
      four masks scene 0's single-scene graph hands to
      ``connected_components_best``, speckle, a spiral, a serpentine, empty
@@ -59,8 +63,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
      ``fused_calibrate_stretch`` on a 16-bit and a float 7 x 600 x 600
      scene with positive and negative gains; ``glcm_grid`` on the batch's
      eight NIR texture bands at the default configuration, at levels 8 /
-     window 12, on a band with flat windows, and at levels 256 (counts in
-     global memory);
+     window 12, on a band with flat windows, at levels 256 (counts in
+     global memory), at window 23 (which does not divide 600), at levels 1
+     and 2, on inputs from -1 to levels, and with 16 offsets, some
+     negative;
  14. the path: scene 0 (uint8) through ``preprocess_bands`` and a 16-bit
      copy of it (DN * 257 plus seeded noise) through the f32 route, each
      into ``extract_features``, with launch counts read around each run
@@ -95,7 +101,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from rs_image_segmentation_tpu_torch.tools.kernel_times import (  # noqa: E402
     cold_ms, graph_cc_masks, kernel_device_ms, kernel_numbers, l2_flusher,
-    large_forest, mean_numbers, reflected_tiling)
+    large_forest, launched_kernels, mean_numbers, reflected_tiling)
 
 BATCH, BANDS, HEIGHT, WIDTH = 8, 7, 600, 600
 N_TREES = 100
@@ -105,6 +111,9 @@ F32_OPS_PER_S = 67e12              # H100 SXM, f32 outside the tensor cores
 INT32_OPS_PER_S = 33.5e12          # H100 SXM, int32 (half the f32 rate)
 BINS = 32768                       # the rule path's component-id cap
 LARGE = 6000                       # the large scene's height and width
+OFFSETS_16 = ((0, 1), (1, 0), (1, 1), (1, -1), (-1, 0), (0, -1), (-1, -1),
+              (-1, 1), (0, 2), (2, 0), (2, 2), (-2, 3), (3, -2), (0, -3),
+              (-3, 0), (2, -1))        # GLCM offsets, four warps' worth
 PALLAS = "rs_image_segmentation_tpu/ops/pallas_kernels.py"
 CSRC = "rs_image_segmentation_tpu_torch/csrc"
 
@@ -264,6 +273,40 @@ def edge_masks():
             rng.random((1, 100001)) < 0.6)
 
 
+def hist_cases(ids, dev) -> dict:
+    """The hist_dense edge cases: name -> (ids, bins_hi, the instance the
+    wrapper must pick)."""
+    from rs_image_segmentation_tpu_torch.ops import kernels
+    m3, n = ids.shape[0], ids[0].numel()
+    bins_hi = BINS // kernels.HIST_LO
+    rng = np.random.default_rng(SEED + 5)
+    big_hi = kernels.HIST_CLUSTER_MAX_BINS // kernels.HIST_LO + 1
+    base = torch.from_numpy(rng.integers(0, BINS, 4 * n + 1,
+                                         dtype=np.int32)).to(dev)
+
+    def on(a):
+        return torch.from_numpy(a.astype(np.int32)).to(dev)
+
+    return {
+        "a single id (worst contention)": (
+            torch.full_like(ids, 5), bins_hi, "cluster"),
+        "all background": (torch.full_like(ids, BINS), bins_hi, "cluster"),
+        "uniform random in-range ids (no runs)": (
+            on(rng.integers(0, BINS, (m3, n))), bins_hi, "cluster"),
+        "negative ids and ids >= bins": (
+            on(rng.integers(-BINS, 2 * BINS, (m3, n))), bins_hi, "cluster"),
+        "n % 4 != 0": (on(rng.integers(-3, BINS + 3, (4, n - 1))), bins_hi,
+                       "global"),
+        "base offset by one element": (base[1:].reshape(4, n), bins_hi,
+                                       "global"),
+        "bins 128": (on(rng.integers(-5, 140, (6, n))), 1, "cluster"),
+        f"bins {big_hi * kernels.HIST_LO} (past a cluster)": (
+            on(rng.integers(-5, big_hi * kernels.HIST_LO + 5, (4, n))),
+            big_hi, "global"),
+        "M = 1": (ids[:1].contiguous(), bins_hi, "global"),
+    }
+
+
 def rule_phases(dev, cfg, scenes, luts, params, hists, scenes_d, luts_d,
                 params_d, hists_d, lut_row) -> list:
     """Phases 7-9: the rule path's kernels against their plain versions,
@@ -320,6 +363,23 @@ def rule_phases(dev, cfg, scenes, luts, params, hists, scenes_d, luts_d,
         errs["keep_lut"] = max(errs.get("keep_lut", 0.0), err)
         print(f"check hist_dense, keep_lut [{label}] at {tuple(x.shape)}, "
               f"bins {BINS}: bit-equal")
+    cases = {"first-stage ids": (ids, bins_hi, "cluster"),
+             **hist_cases(ids, dev)}
+    for label, (x, hi, instance) in cases.items():
+        flat = x.reshape(x.shape[0], -1)
+        picked = kernels.hist_dense_instance(flat, hi * kernels.HIST_LO)
+        check(picked == instance, f"hist_dense [{label}] takes the "
+              f"{instance} instance, not {picked}")
+        counts = kernels.hist_dense(x, hi)
+        counts_ref = kernels.hist_dense_plain(x, hi)
+        torch.cuda.synchronize()
+        err = float((counts - counts_ref).abs().max().item())
+        check(err == 0, f"hist_dense [{label}] bit-equal (max err {err})")
+        errs["hist_dense"] = max(errs["hist_dense"], err)
+        print(f"check hist_dense [{label}] at {tuple(x.shape)}, bins "
+              f"{hi * kernels.HIST_LO}, {instance} instance: bit-equal; "
+              f"{int(counts_ref.long().sum().item())} ids counted",
+              flush=True)
     print(f"first stage: {m3} masks, at most {runs} row runs in a mask "
           f"(cap {BINS})")
 
@@ -391,6 +451,11 @@ def rule_phases(dev, cfg, scenes, luts, params, hists, scenes_d, luts_d,
     table = kernels.hist_dense_plain(ids, bins_hi) >= min3.reshape(-1, 1, 1)
     nums["hist_dense"] = kernel_numbers(
         lambda: kernels.hist_dense(ids, bins_hi), flush)
+    launched = launched_kernels(lambda: kernels.hist_dense(ids, bins_hi))
+    check(len(launched) == 1 and "hist_cluster_kernel" in launched[0],
+          f"a hist_dense call launches its kernel and no memset: "
+          f"{launched}")
+    print(f"hist_dense, a call at {tuple(ids.shape)} launches {launched}")
     nums["keep_lut"] = kernel_numbers(lambda: kernels.keep_lut(ids, table),
                                       flush)
     hist_ms = cuda_time_ms(lambda: kernels.hist_dense(ids, bins_hi), 20)
@@ -448,6 +513,7 @@ def rule_phases(dev, cfg, scenes, luts, params, hists, scenes_d, luts_d,
             "library_ms": lib, "library_note": lib_note, "bytes": nbytes,
             "shape": [m3, HEIGHT, WIDTH], "rule_path_ms": batch_ms,
             **timing_keys(nums[kname])})
+    rows[1]["kernels_a_call_launches"] = launched
     return rows
 
 
@@ -907,8 +973,14 @@ def stage_phases(dev, cfg, scenes, luts, scenes_d, luts_d) -> list:
         print(f"check fused_calibrate_stretch [{label}] at {tuple(x.shape)}:"
               f" bit-equal", flush=True)
     q_batch = (tex01 * (g.levels - 1)).to(torch.uint8).to(torch.int32)
+
+    def rand_levels(lo, hi, seed):
+        return torch.from_numpy(np.random.default_rng(SEED + 40 + seed)
+                                .integers(lo, hi, (2, HEIGHT, WIDTH),
+                                          dtype=np.int32)).to(dev)
     glcm_cases = {
-        f"the batch's NIR bands, levels {g.levels}, window {g.window_size}":
+        f"the batch's 8 NIR bands, levels {g.levels}, window "
+        f"{g.window_size}":
             (q_batch, g.levels, g.window_size),
         "levels 8, window 12": ((tex01 * 7).to(torch.uint8).to(torch.int32),
                                 8, 12),
@@ -916,10 +988,18 @@ def stage_phases(dev, cfg, scenes, luts, scenes_d, luts_d) -> list:
             flat_window_band(HEIGHT, WIDTH)).to(dev), 32, 21),
         "levels 256 (global counts), window 21": (
             (tex01[:2] * 255).to(torch.uint8).to(torch.int32), 256, 21),
+        "window 23 (does not divide 600), levels 32": (q_batch[:2], 32, 23),
+        "levels 1, inputs -1..1": (rand_levels(-1, 2, 1), 1, 21),
+        "levels 2": ((tex01[:2] * 1).to(torch.uint8).to(torch.int32), 2, 21),
+        "inputs -1..levels, levels 32": (rand_levels(-1, 33, 2), 32, 21),
+        "16 offsets, some negative, levels 32": (q_batch[:2], 32, 21,
+                                                 OFFSETS_16),
     }
-    for label, (q, levels, window) in glcm_cases.items():
-        got = kernels.glcm_grid(q, levels, window, window, offsets)
-        ref = kernels.glcm_grid_plain(q, levels, window, window, offsets)
+    for label, case in glcm_cases.items():
+        q, levels, window = case[:3]
+        offs = case[3] if len(case) > 3 else offsets
+        got = kernels.glcm_grid(q, levels, window, window, offs)
+        ref = kernels.glcm_grid_plain(q, levels, window, window, offs)
         torch.cuda.synchronize()
         diff = bits_equal(got, ref)
         check(diff == 0, f"glcm_grid [{label}] bit-equal ({diff} differ)")
@@ -929,7 +1009,12 @@ def stage_phases(dev, cfg, scenes, luts, scenes_d, luts_d) -> list:
             check(torch.equal(got[0, 0], want) and torch.equal(got[1, 1],
                                                                want),
                   f"flat windows give 0, 0, 1, 1, 1: {got[0, 0].tolist()}")
-        print(f"check glcm_grid [{label}] at {tuple(q.shape)}: bit-equal; "
+        instance = ("shared" if kernels._glcm_counts_in_smem(
+            levels, window, len(offs)) else "global")
+        check(instance == ("global" if levels == 256 else "shared"),
+              f"glcm_grid [{label}] instance {instance}")
+        print(f"check glcm_grid [{label}] at {tuple(q.shape)}, "
+              f"{len(offs)} offsets, {instance} instance: bit-equal; "
               f"{got.shape[-3] * got.shape[-2]} windows per band",
               flush=True)
 

@@ -155,9 +155,11 @@ def remove_small_components_batch(masks: torch.Tensor,
     first-run rank reaches ``bins`` is dropped as if too small, and its
     mask is flagged: callers reroute flagged masks to an uncapped path.
     The JAX package cut the histogram's cost with smaller bins tiers when
-    every id allowed; a Hopper histogram's cost does not grow with its bin
-    count, so this always counts all ``bins``, which is what the tiers
-    reproduced."""
+    every id allowed. This always counts all ``bins``, which is what the
+    tiers reproduced. The kernel's cost does grow with ``bins``, but only
+    by zeroing and writing each bin once (each block of a mask's cluster
+    owns an eighth of them): 3.1 MB of counts against 34.6 MB of ids at 24
+    masks of 600 x 600 and 32768 bins."""
     if bins % HIST_LO:
         raise ValueError(f"bins must be a multiple of 128, got {bins}")
     m = masks.shape[0]

@@ -616,6 +616,36 @@ def hist_dense_plain(ids: torch.Tensor, bins_hi: int) -> torch.Tensor:
     return torch.stack(rows).to(torch.int32).reshape(-1, bins_hi, HIST_LO)
 
 
+HIST_CLUSTER = 8        # blocks per mask of the cluster instance (kCluster)
+HIST_THREADS = 512      # its threads per block (kClusterThreads)
+HIST_UNROLL = 4         # 16-byte loads in flight per thread (kUnroll)
+HIST_CLUSTER_MAX_BINS = HIST_CLUSTER * 12288     # 48 KB of bins a block
+
+
+def hist_cluster_plan(n: int, bins: int) -> Tuple[int, int]:
+    """The cluster instance's partition of one mask (``csrc/hist_keep.cu``):
+    ``(span4, bpb)``, the 16-byte words of ids each of the ``HIST_CLUSTER``
+    blocks reads (block r: words ``[r * span4, (r + 1) * span4)``), and the
+    bins each block holds in its shared memory, a multiple of 128 (block r
+    owns the granules of 128 bins ``r, r + HIST_CLUSTER, ...``)."""
+    span4 = -(-(n // 4) // HIST_CLUSTER)
+    per = HIST_CLUSTER * HIST_LO
+    return span4, -(-bins // per) * HIST_LO
+
+
+def hist_dense_instance(flat: torch.Tensor, bins: int) -> str:
+    """Which instance of the kernel counts ``(M, N)`` ids into ``bins``:
+    ``"cluster"`` (one thread-block cluster per mask, every bin written
+    once) or ``"global"`` (global atomics into a zeroed output) for the
+    shapes the cluster instance does not take: one mask, ``N % 4 != 0``,
+    ids not 16-byte aligned, or more than ``HIST_CLUSTER_MAX_BINS``."""
+    m, n = flat.shape
+    if (m >= 2 and n % 4 == 0 and flat.data_ptr() % 16 == 0
+            and bins <= HIST_CLUSTER_MAX_BINS):
+        return "cluster"
+    return "global"
+
+
 def hist_dense(ids: torch.Tensor, bins_hi: int) -> torch.Tensor:
     """``(M, ...)`` int32 ids -> ``(M, bins_hi, 128)`` int32 exact counts
     per mask of each id in ``[0, bins_hi * 128)``; other ids are not
@@ -627,11 +657,19 @@ def hist_dense(ids: torch.Tensor, bins_hi: int) -> torch.Tensor:
         return hist_dense_plain(ids, bins_hi)
     _require_cuda(ids)
     m, n = flat.shape
-    counts = torch.zeros((m, bins_hi, HIST_LO), dtype=torch.int32,
-                         device=ids.device)
+    bins = bins_hi * HIST_LO
+    if hist_dense_instance(flat, bins) == "cluster":
+        span4, bpb = hist_cluster_plan(n, bins)
+        counts = torch.empty((m, bins_hi, HIST_LO), dtype=torch.int32,
+                             device=ids.device)
+    else:       # the global instance adds into the output
+        span4, bpb = 0, 0
+        counts = torch.zeros((m, bins_hi, HIST_LO), dtype=torch.int32,
+                             device=ids.device)
     _call("hist_keep", "hist_dense_launch",
-          [_P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P],
-          flat.data_ptr(), counts.data_ptr(), m, n, bins_hi * HIST_LO,
+          [_P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+           ctypes.c_longlong, ctypes.c_int, _P],
+          flat.data_ptr(), counts.data_ptr(), m, n, bins, span4, bpb,
           _stream(ids.device))
     hist_dense.launches += 1
     return counts
@@ -884,13 +922,15 @@ def glcm_grid_plain(q: torch.Tensor, levels: int, window: int, step: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _glcm_counts_in_smem(levels: int) -> bool:
-    """Whether a block's counts at ``levels`` fit the kernel's shared
-    memory (else they go to a global scratch)."""
+def _glcm_counts_in_smem(levels: int, window: int, n_offsets: int) -> bool:
+    """Whether the counts of the shared instance's warps (one per offset,
+    up to four) fit a block's shared memory beside the window at
+    ``levels``; else the global instance takes the call, its counts in a
+    global scratch."""
     lib = _build.load("glcm")
-    lib.glcm_smem_bytes.restype = ctypes.c_longlong
-    lib.glcm_smem_limit.restype = ctypes.c_longlong
-    return lib.glcm_smem_bytes(levels) <= lib.glcm_smem_limit()
+    lib.glcm_warps.restype = ctypes.c_int
+    lib.glcm_warps.argtypes = [ctypes.c_int] * 3
+    return lib.glcm_warps(levels, window, n_offsets) > 0
 
 
 def glcm_grid(q: torch.Tensor, levels: int, window: int, step: int,
@@ -913,7 +953,7 @@ def glcm_grid(q: torch.Tensor, levels: int, window: int, step: int,
     n_i = (h - window) // step + 1
     n_j = (w - window) // step + 1
     n_win = batch * n_i * n_j
-    if _glcm_counts_in_smem(levels):
+    if _glcm_counts_in_smem(levels, window, len(offs)):
         scratch, grid = None, n_win
     else:       # counts too large for shared memory: a zeroed slot a block
         grid = min(n_win, _GLCM_BLOCKS_GLOBAL)

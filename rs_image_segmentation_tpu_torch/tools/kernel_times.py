@@ -1,5 +1,5 @@
-"""Device times of the forest and union-find kernels at the main paths'
-shapes, three ways: back to back (a mean of calls in a row, whose inputs
+"""Device times of the redesigned kernels at the main paths' shapes, three
+ways: back to back (a mean of calls in a row, whose inputs
 may stay in the 50 MB L2), one call with the L2 flushed (the median of
 CUDA-event times), and each CUDA kernel alone, by name, from a
 ``torch.profiler`` trace of calls with the L2 flushed before each.
@@ -14,18 +14,30 @@ scenes of 7 x 600 x 600 from seed 0):
 * ``ccmin_prop`` over the batched rule path's 24 first-stage masks with
   their run-rank seeds;
 * ``cc_labels`` over the four masks the single-scene rule graph labels,
-  at 600 x 600 and at 6000 x 6000 (a reflected tiling of scene 0).
+  at 600 x 600 and at 6000 x 6000 (a reflected tiling of scene 0);
+* ``hist_dense`` over the ids the batched rule path counts: its 24
+  first-stage masks and its 8 bare-land masks (bins 32768); and stacks of
+  24 that are all background (the empty-input floor), uniform random ids
+  (an atomic per id) and one id (the worst contention); with the kernels
+  a call launches, from a trace of three calls;
+* ``glcm_grid`` over stage 2's texture band of scene 0 (levels 32, window
+  = step = 21, four offsets), the batch's 8 texture bands, a flat band
+  (every pair on one cell) and a band of uniform random levels (pairs
+  spread over the cells).
 
 ``--root DIR`` imports the port's package from the checkout at ``DIR``
 (for example an unpacked parent commit), so that two versions of the
 kernels can be timed by one script on one card:
 
     python3 rs_image_segmentation_tpu_torch/tools/kernel_times.py \\
-        [--root DIR] [--out FILE.json]
+        [--root DIR] [--kernels hist_dense,glcm_grid] [--out FILE.json]
+
+``--kernels`` picks the kernels to time (default: all five).
 
 The timing helpers (``l2_flusher``, ``cold_ms``, ``trace_ms``,
 ``kernel_device_ms``, ``kernel_numbers``) and the fixtures
-(``large_forest``, ``reflected_tiling``, ``graph_cc_masks``) are also used
+(``large_forest``, ``reflected_tiling``, ``spied_calls``,
+``graph_cc_masks``, ``rule_hist_ids``, ``stage2_glcm_bands``) are also used
 by ``chip_smoke.py``. They need a card
 and raise without one.
 """
@@ -47,6 +59,9 @@ import torch
 L2_FLUSH_BYTES = 256 << 20     # over five times the H100's 50 MB L2
 LARGE_FOREST_SAMPLES = 2000
 BATCH, SIZE, LARGE, SEED = 8, 600, 6000, 0
+BINS = 32768                   # the batched rule path's component-id cap
+KERNELS = ("forest_labels", "ccmin_prop", "cc_labels", "hist_dense",
+           "glcm_grid")
 
 
 def _need_card() -> None:
@@ -128,6 +143,16 @@ def kernel_device_ms(fn, kernel: str, flush, reps: int = 20):
     return total if total > 0 else None
 
 
+def launched_kernels(fn, reps: int = 3) -> list:
+    """The names of the CUDA kernels a call of ``fn`` launches, memsets and
+    fills included, from a torch.profiler trace of ``reps`` calls (a trace
+    of one call can miss its first launch)."""
+    _need_card()
+    fn()
+    torch.cuda.synchronize()
+    return sorted(short_name(k) for k in _trace(fn, reps))
+
+
 def short_name(kernel: str) -> str:
     """``void (anonymous namespace)::cc_tile<2, false>(...)`` ->
     ``cc_tile<2, false>``."""
@@ -161,24 +186,80 @@ def mean_numbers(runs) -> dict:
     return out
 
 
+def spied_calls(module, name: str, run):
+    """``run()``, and the arguments of every call it makes to
+    ``module.<name>`` (tensors cloned)."""
+    seen = []
+    real = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        seen.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                          for a in args))
+        return real(*args, **kwargs)
+
+    setattr(module, name, spy)
+    try:
+        out = run()
+    finally:
+        setattr(module, name, real)
+    return out, seen
+
+
 def graph_cc_masks(run):
     """``run()``, and the masks it hands to
     ``ops.components.connected_components_best``, with their
     connectivities."""
     from rs_image_segmentation_tpu_torch.ops import components
-    seen = []
-    best = components.connected_components_best
+    out, seen = spied_calls(components, "connected_components_best", run)
+    return out, [(a[0], a[1] if len(a) > 1 else 8) for a in seen]
 
-    def spy(mask, connectivity=8, impl="auto"):
-        seen.append((mask.clone(), connectivity))
-        return best(mask, connectivity, impl)
 
-    components.connected_components_best = spy
-    try:
-        out = run()
-    finally:
-        components.connected_components_best = best
-    return out, seen
+def rule_hist_ids(scenes_d, luts_d, cfg, params_d, hists_d):
+    """The id stacks the batched rule program hands to ``hist_dense``: its
+    first-stage masks (3 per scene) and its bare-land masks (1 per scene),
+    with the ``bins_hi`` of each call."""
+    from rs_image_segmentation_tpu_torch.ops import components
+    from rs_image_segmentation_tpu_torch.pipeline import turbo
+    _, calls = spied_calls(components, "hist_dense", lambda: (
+        turbo.rule_based_scenes_turbo_batch(
+            scenes_d, luts_d, cfg, stretch_params=params_d,
+            stretch_hists=hists_d, device=scenes_d.device)))
+    if len(calls) != 2:
+        raise RuntimeError(f"the rule program counted {len(calls)} stacks")
+    return calls
+
+
+def stage2_glcm_bands(scene, cfg, dev):
+    """The levels stage 2 hands to ``glcm_grid`` for a raw (7, H, W) uint8
+    scene (``preprocess_bands`` into ``extract_features``)."""
+    from rs_image_segmentation_tpu_torch.core.config import (
+        CalibrationConfig)
+    from rs_image_segmentation_tpu_torch.ops import texture
+    from rs_image_segmentation_tpu_torch.pipeline import features
+    from rs_image_segmentation_tpu_torch.pipeline.preprocess import (
+        preprocess_bands)
+    cal = CalibrationConfig()
+    art = preprocess_bands(scene, np.asarray(cal.gains),
+                           np.asarray(cal.biases), device=dev)
+    _, calls = spied_calls(texture, "glcm_grid", lambda: (
+        features.extract_features(art, cfg, device=dev)))
+    if len(calls) != 1:
+        raise RuntimeError(f"stage 2 called glcm_grid {len(calls)} times")
+    return calls[0][0]
+
+
+def batch_glcm_bands(scenes_d, luts_d, cfg):
+    """The batch's texture bands quantised to the configuration's levels,
+    (B, H, W) int32: each scene stretched, normalised as stage 2 does, its
+    texture band renormalised."""
+    from rs_image_segmentation_tpu_torch.ops import kernels
+    from rs_image_segmentation_tpu_torch.ops.normalize import (
+        robust_normalize)
+    from rs_image_segmentation_tpu_torch.pipeline import features
+    stretched = kernels.lut_hist_plain(scenes_d, luts_d, skip_hist=True)
+    bands01 = features.normalize_bands(stretched, cfg)
+    tex01 = robust_normalize(bands01[:, cfg.texture_band_index])
+    return (tex01 * (cfg.glcm.levels - 1)).to(torch.uint8).to(torch.int32)
 
 
 def reflected_tiling(scene: np.ndarray, size: int) -> np.ndarray:
@@ -212,8 +293,9 @@ def large_forest(stack0: np.ndarray, samples: int = LARGE_FOREST_SAMPLES):
     return gf
 
 
-def measure(dev) -> dict:
-    """Every number of this script's JSON, on ``dev``."""
+def measure(dev, which=KERNELS) -> dict:
+    """Every number of this script's JSON, on ``dev``, for the kernels
+    named in ``which``."""
     from rs_image_segmentation_tpu_torch.core.config import (
         CalibrationConfig, FeatureStageConfig, RuleBasedConfig)
     from rs_image_segmentation_tpu_torch.models.forest import GemmForest
@@ -232,46 +314,92 @@ def measure(dev) -> dict:
     flush = l2_flusher(dev)
     out = {}
 
-    stacks = turbo.hierarchical_stack_turbo_cm(scenes_d, luts_d, cfg,
-                                               device=dev)
-    x_cm = stacks.reshape(BATCH, 19, SIZE * SIZE)
-    stack0 = stacks[0].cpu().numpy()
-    forests = {"bundled": rule_forest(stack0)[0],
-               "large": large_forest(stack0)}
-    for key, gf_cpu in forests.items():
-        gf = GemmForest(*(t.to(dev) for t in gf_cpu))
-        got = kernels.forest_labels(gf, x_cm)
-        torch.cuda.synchronize()
-        res = kernel_numbers(lambda: kernels.forest_labels(gf, x_cm), flush,
-                             5, 10, 5)
-        res["leaves"] = int(gf.path.shape[1])
-        res["labels_sum"] = int(got.long().sum().item())
-        out[f"forest_labels, {key} forest"] = res
+    if "forest_labels" in which:
+        stacks = turbo.hierarchical_stack_turbo_cm(scenes_d, luts_d, cfg,
+                                                   device=dev)
+        x_cm = stacks.reshape(BATCH, 19, SIZE * SIZE)
+        stack0 = stacks[0].cpu().numpy()
+        forests = {"bundled": rule_forest(stack0)[0],
+                   "large": large_forest(stack0)}
+        for key, gf_cpu in forests.items():
+            gf = GemmForest(*(t.to(dev) for t in gf_cpu))
+            got = kernels.forest_labels(gf, x_cm)
+            torch.cuda.synchronize()
+            res = kernel_numbers(lambda: kernels.forest_labels(gf, x_cm),
+                                 flush, 5, 10, 5)
+            res["leaves"] = int(gf.path.shape[1])
+            res["labels_sum"] = int(got.long().sum().item())
+            out[f"forest_labels, {key} forest"] = res
 
-    rc = RuleBasedConfig()
-    nd = turbo._rule_front(scenes_d, luts_d, cfg, params_d, hists_d)
-    stack3, _ = turbo._rule_first_stage(*nd, rc)
-    fg3 = stack3 != 0
-    seeds = components.run_rank_seeds(fg3)
-    out["ccmin_prop, 24 x 600 x 600"] = kernel_numbers(
-        lambda: kernels.ccmin_prop(fg3, seeds, 8), flush)
+    if "ccmin_prop" in which:
+        rc = RuleBasedConfig()
+        nd = turbo._rule_front(scenes_d, luts_d, cfg, params_d, hists_d)
+        stack3, _ = turbo._rule_first_stage(*nd, rc)
+        fg3 = stack3 != 0
+        seeds = components.run_rank_seeds(fg3)
+        out["ccmin_prop, 24 x 600 x 600"] = kernel_numbers(
+            lambda: kernels.ccmin_prop(fg3, seeds, 8), flush)
 
-    def single(raw_d, lut_d):
-        return turbo.rule_based_scenes_turbo(raw_d, lut_d, cfg, device=dev)
+    if "cc_labels" in which:
+        def single(raw_d, lut_d):
+            return turbo.rule_based_scenes_turbo(raw_d, lut_d, cfg,
+                                                 device=dev)
 
-    _, masks = graph_cc_masks(lambda: single(scenes_d[0], luts_d[0]))
-    cal = CalibrationConfig()
-    big = reflected_tiling(scenes[0], LARGE)
-    big_lut = build_stretch_lut(big, np.asarray(cal.gains),
-                                np.asarray(cal.biases)).astype(np.uint8)
-    _, big_masks = graph_cc_masks(lambda: single(
-        torch.from_numpy(big).to(dev), torch.from_numpy(big_lut).to(dev)))
-    for key, ms_, reps in ((f"{SIZE} x {SIZE}", masks, 20),
-                           (f"{LARGE} x {LARGE}", big_masks, 5)):
-        out[f"cc_labels, {key}, mean of the graph's four masks"] = \
-            mean_numbers([kernel_numbers(
-                lambda m=m: kernels.cc_labels(m, c), flush, reps, reps, reps)
-                for m, c in ms_])
+        _, masks = graph_cc_masks(lambda: single(scenes_d[0], luts_d[0]))
+        cal = CalibrationConfig()
+        big = reflected_tiling(scenes[0], LARGE)
+        big_lut = build_stretch_lut(big, np.asarray(cal.gains),
+                                    np.asarray(cal.biases)).astype(np.uint8)
+        _, big_masks = graph_cc_masks(lambda: single(
+            torch.from_numpy(big).to(dev), torch.from_numpy(big_lut).to(dev)))
+        for key, ms_, reps in ((f"{SIZE} x {SIZE}", masks, 20),
+                               (f"{LARGE} x {LARGE}", big_masks, 5)):
+            out[f"cc_labels, {key}, mean of the graph's four masks"] = \
+                mean_numbers([kernel_numbers(
+                    lambda m=m: kernels.cc_labels(m, c), flush, reps, reps,
+                    reps) for m, c in ms_])
+
+    if "hist_dense" in which:
+        (ids3, hi3), (ids_bare, hi_bare) = rule_hist_ids(
+            scenes_d, luts_d, cfg, params_d, hists_d)
+        empty = torch.full_like(ids3, BINS)
+        noise = torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, BINS, tuple(ids3.shape), dtype=np.int32)).to(dev)
+        for key, ids, bins_hi in (
+                ("24 first-stage masks", ids3, hi3),
+                ("8 bare-land masks", ids_bare, hi_bare),
+                ("24 all-background masks (floor)", empty, hi3),
+                ("24 masks of uniform random ids (no runs)", noise, hi3),
+                ("24 masks of one id", torch.full_like(ids3, 5), hi3)):
+            res = kernel_numbers(lambda: kernels.hist_dense(ids, bins_hi),
+                                 flush)
+            res["kernels_a_call_launches"] = launched_kernels(
+                lambda: kernels.hist_dense(ids, bins_hi))
+            res["counts_sum"] = int(kernels.hist_dense(ids, bins_hi)
+                                    .long().sum().item())
+            out[f"hist_dense, {key} x {SIZE} x {SIZE}, bins "
+                f"{bins_hi * kernels.HIST_LO}"] = res
+
+    if "glcm_grid" in which:
+        g = cfg.glcm
+        from rs_image_segmentation_tpu_torch.ops.texture import (
+            _offset_for_angle)
+        offsets = tuple(_offset_for_angle(1, a) for a in g.angles)
+        band = stage2_glcm_bands(scenes[0], cfg, dev)
+        for key, q in (
+                ("stage 2's band", band),
+                ("the batch's 8 bands", batch_glcm_bands(scenes_d, luts_d,
+                                                         cfg)),
+                ("a flat band (floor)", torch.zeros_like(band)),
+                ("a band of uniform random levels", torch.from_numpy(
+                    np.random.default_rng(SEED).integers(
+                        0, g.levels, tuple(band.shape), dtype=np.int32))
+                 .to(dev))):
+            res = kernel_numbers(lambda: kernels.glcm_grid(
+                q, g.levels, g.window_size, g.step_size, offsets), flush)
+            res["shape"] = list(q.shape)
+            out[f"glcm_grid, {key}, levels {g.levels}, window "
+                f"{g.window_size}"] = res
     return out
 
 
@@ -280,6 +408,9 @@ def main(argv=None) -> int:
     parser.add_argument("--root", default=None,
                         help="checkout whose rs_image_segmentation_tpu_torch "
                              "package is timed (default: this one)")
+    parser.add_argument("--kernels", default=",".join(KERNELS),
+                        help="comma-separated kernels to time (default: "
+                             "all)")
     parser.add_argument("--out", default=None, help="also write the JSON here")
     args = parser.parse_args(argv)
     root = os.path.abspath(args.root or os.path.join(
@@ -294,13 +425,19 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    numbers = measure(resolve_device(None))
+    which = tuple(args.kernels.split(","))
+    unknown = set(which) - set(KERNELS)
+    if unknown:
+        parser.error(f"unknown kernels {sorted(unknown)}")
+    numbers = measure(resolve_device(None), which)
     result = {"card": smi, "package": os.path.dirname(pkg.__file__),
               "seconds": time.perf_counter() - t0, "numbers": numbers}
     for key, r in numbers.items():
         passes = "; ".join(f"{k} {v:.4f}" for k, v in r["passes"].items())
+        launched = r.get("kernels_a_call_launches")
         print(f"{key}: back to back {r['ms']:.4f} ms, cold L2 "
-              f"{r['cold_ms']:.4f} ms, alone {r['alone_ms']} ms ({passes})")
+              f"{r['cold_ms']:.4f} ms, alone {r['alone_ms']} ms ({passes})"
+              + (f"; a call launches {launched}" if launched else ""))
     print(smi)
     print(json.dumps(result))
     if args.out:

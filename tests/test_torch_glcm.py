@@ -76,6 +76,71 @@ def test_plain_matches_pallas(flat):
             np.testing.assert_array_equal(grid[1, 1], [0, 0, 1, 1, 1])
 
 
+# 16 offsets, some negative: the kernel's warps loop over them
+OFFSETS_16 = ((0, 1), (1, 0), (1, 1), (1, -1), (-1, 0), (0, -1), (-1, -1),
+              (-1, 1), (0, 2), (2, 0), (2, 2), (-2, 3), (3, -2), (0, -3),
+              (-3, 0), (2, -1))
+
+
+def _edge_case(name):
+    """(q, levels, window, offsets) of a glcm_grid edge case the card
+    checks too, at a small size."""
+    rng = np.random.default_rng(21)
+    if name == "16 offsets":
+        return (rng.integers(0, 8, (48, 60)).astype(np.int32), 8, 12,
+                OFFSETS_16)
+    if name == "window 23 on 50 x 71":
+        return (rng.integers(0, 8, (50, 71)).astype(np.int32), 8, 23,
+                OFFSETS)
+    if name == "levels 1":
+        return (rng.integers(-1, 2, (48, 60)).astype(np.int32), 1, 12,
+                OFFSETS)
+    if name == "levels 2":
+        return (rng.integers(0, 2, (48, 60)).astype(np.int32), 2, 12,
+                OFFSETS)
+    if name == "inputs -1 and levels":
+        return (rng.integers(-1, 9, (48, 60)).astype(np.int32), 8, 12,
+                OFFSETS)
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", ["16 offsets", "window 23 on 50 x 71",
+                                  "levels 1", "levels 2",
+                                  "inputs -1 and levels"])
+def test_plain_matches_pallas_on_edge_cases(name):
+    q, levels, window, offsets = _edge_case(name)
+    ref = np.asarray(glcm_grid_pallas(jnp.asarray(q), levels, window, window,
+                                      offsets, interpret=True))
+    got = kernels.glcm_grid_plain(torch.from_numpy(q), levels, window,
+                                  window, offsets).numpy()
+    assert got.shape == ref.shape and got.dtype == np.float32
+    assert np.isfinite(got).all()
+    assert np.abs(ref - got).max() < 1e-4      # the Pallas test's bound
+
+
+def test_plain_batch_of_8_matches_pallas_per_band():
+    q = np.random.default_rng(22).integers(-1, 9, (8, 36, 50)).astype(
+        np.int32)
+    got = kernels.glcm_grid_plain(torch.from_numpy(q), 8, 12, 12,
+                                  OFFSETS).numpy()
+    assert got.shape == (8, 3, 4, 5)
+    for b in range(8):
+        ref = np.asarray(glcm_grid_pallas(jnp.asarray(q[b]), 8, 12, 12,
+                                          OFFSETS, interpret=True))
+        assert np.abs(ref - got[b]).max() < 1e-4   # the Pallas test's bound
+
+
+def test_levels_1_gives_flat_properties():
+    """At one level every counted pair sits on one cell: 0, 0, 1, 1, 1;
+    a window without a pair gives 0, 0, 0, 0, 1."""
+    q = np.zeros((24, 36), np.int32)
+    q[12:, 12:24] = -1                  # one window with no valid pair
+    got = kernels.glcm_grid_plain(torch.from_numpy(q), 1, 12, 12,
+                                  OFFSETS).numpy()
+    np.testing.assert_array_equal(got[0, 0], [0, 0, 1, 1, 1])
+    np.testing.assert_array_equal(got[1, 1], [0, 0, 0, 0, 1])
+
+
 @pytest.mark.parametrize("levels", [32, 256])
 def test_plain_matches_xla_route(levels):
     q = np.random.default_rng(levels).integers(

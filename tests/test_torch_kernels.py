@@ -433,6 +433,149 @@ def test_hist_dense_and_keep_lut_plain_match_pallas_interpret():
     assert 0 < ref_keep.sum() < ids.size
 
 
+def _hist_case(name):
+    """(ids, bins_hi) of a hist_dense edge case the card checks too."""
+    rng = np.random.default_rng(12)
+    if name == "single id":
+        return np.full((3, 512), 5, np.int32), 2
+    if name == "all background":
+        return np.full((3, 512), 256, np.int32), 2
+    if name == "uniform random":
+        return rng.integers(0, 256, (3, 512)).astype(np.int32), 2
+    if name == "bins 128":
+        return rng.integers(-5, 140, (4, 384)).astype(np.int32), 1
+    if name == "M = 1":
+        return rng.integers(-3, 260, (1, 640)).astype(np.int32), 2
+    if name == "n % 4 != 0":
+        return rng.integers(-3, 260, (3, 301)).astype(np.int32), 2
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", ["single id", "all background",
+                                  "uniform random", "bins 128", "M = 1",
+                                  "n % 4 != 0"])
+def test_hist_dense_plain_matches_pallas_on_edge_cases(name):
+    from rs_image_segmentation_tpu.ops.pallas_kernels import (
+        hist_dense_pallas)
+    ids, bins_hi = _hist_case(name)
+    m, n = ids.shape
+    # the Pallas kernel takes rows of 128 ids; -1 pads them and counts
+    # nothing
+    padded = np.full((m, -(-n // 128) * 128), -1, np.int32)
+    padded[:, :n] = ids
+    ref = np.asarray(hist_dense_pallas(jnp.asarray(padded.reshape(m, -1,
+                                                                  128)),
+                                       bins_hi, interpret=True))
+    got = kernels.hist_dense_plain(torch.from_numpy(ids), bins_hi).numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
+def _rendered_hist_cluster(ids, bins, threads=kernels.HIST_THREADS,
+                           unroll=kernels.HIST_UNROLL):
+    """numpy rendering of the cluster instance of ``csrc/hist_keep.cu``
+    on (M, N) ids: per mask, HIST_CLUSTER blocks each read their slice of
+    16-byte words (``hist_cluster_plan``) in steps of ``threads * unroll``
+    words, each thread ``unroll`` consecutive words a step, merging runs of
+    equal in-range ids over its steps and adding each run once into the
+    shared bins of the block that owns its granule of 128 bins (granule g:
+    block ``g % HIST_CLUSTER``, local granule ``g // HIST_CLUSTER``); each
+    block then writes the granules it owns. Returns the counts and the
+    number of atomics."""
+    m, n = ids.shape
+    assert n % 4 == 0
+    span4, bpb = kernels.hist_cluster_plan(n, bins)
+    n4 = n // 4
+    out = np.full((m, bins), -7, np.int64)      # uninitialised output
+    atomics = 0
+    for mask in range(m):
+        words = ids[mask].reshape(n4, 4)
+        shared = np.zeros((kernels.HIST_CLUSTER, bpb), np.int64)
+
+        def add(bin_id, count):
+            g = bin_id // 128
+            shared[g % kernels.HIST_CLUSTER,
+                   g // kernels.HIST_CLUSTER * 128 + bin_id % 128] += count
+        for rank in range(kernels.HIST_CLUSTER):
+            lo = rank * span4
+            hi = min(lo + span4, n4)
+            for t in range(threads):
+                run_id, run_count = -1, 0
+                for base in range(lo + t * unroll, hi, threads * unroll):
+                    for u in range(unroll):
+                        i = base + u
+                        vals = words[i] if i < hi else (-1,) * 4
+                        for v in vals:
+                            if not 0 <= v < bins:
+                                continue
+                            if v == run_id:
+                                run_count += 1
+                                continue
+                            if run_count:
+                                add(run_id, run_count)
+                                atomics += 1
+                            run_id, run_count = v, 1
+                if run_count:
+                    add(run_id, run_count)
+                    atomics += 1
+        for rank in range(kernels.HIST_CLUSTER):
+            for j in range(bpb // 128):
+                g = j * kernels.HIST_CLUSTER + rank
+                if g < bins // 128:
+                    out[mask, g * 128:(g + 1) * 128] = \
+                        shared[rank, j * 128:(j + 1) * 128]
+    return out, atomics
+
+
+@pytest.mark.parametrize("shape,bins,threads,unroll", [
+    ((2, 812), 256, 4, 2),      # 203 words: 26 a block, the last 21
+    ((3, 1000), 128, 3, 4),     # one granule; seven blocks own none
+    ((2, 4 * 97), 384, 5, 1),   # three granules; five blocks own none
+    ((2, 4 * 333), 1280, 7, 3),  # ten granules: two blocks own two
+    ((2, 20000), 32768, kernels.HIST_THREADS, kernels.HIST_UNROLL),
+])
+def test_hist_cluster_rendering_matches_plain(shape, bins, threads, unroll):
+    rng = np.random.default_rng(shape[1])
+    m, n = shape
+    # row runs of one id (as component ids lie), out-of-range ids between
+    lengths = rng.integers(1, 40, n)
+    values = rng.integers(-20, bins + 20, n)
+    ids = np.repeat(values, lengths)[:m * n].reshape(m, n).astype(np.int32)
+    got, atomics = _rendered_hist_cluster(ids, bins, threads, unroll)
+    ref = kernels.hist_dense_plain(torch.from_numpy(ids), bins // 128)
+    np.testing.assert_array_equal(got, ref.reshape(m, bins).numpy())
+    in_range = int(((ids >= 0) & (ids < bins)).sum())
+    assert 0 < atomics < in_range           # runs merged
+
+
+def test_hist_cluster_rendering_merges_one_id_per_thread():
+    """A mask of one id (the worst contention) takes one atomic a
+    thread; an all-background mask none."""
+    threads = 25                        # 100 words a block, 4 a thread
+    one = np.full((2, 4 * 800), 9, np.int32)
+    got, atomics = _rendered_hist_cluster(one, 256, threads, 4)
+    assert got[:, 9].tolist() == [4 * 800] * 2
+    assert int(got.sum()) == 2 * 4 * 800
+    assert atomics == 2 * kernels.HIST_CLUSTER * threads
+    got, atomics = _rendered_hist_cluster(np.full((2, 64), 256, np.int32),
+                                          256, threads, 4)
+    assert atomics == 0 and not got.any()
+
+
+def test_hist_dense_instance_by_shape():
+    bins = 256 * 128
+    big = kernels.HIST_CLUSTER_MAX_BINS + 128
+    ids = torch.zeros((4, 4096), dtype=torch.int32)
+    assert kernels.hist_dense_instance(ids, bins) == "cluster"
+    assert kernels.hist_dense_instance(ids, big) == "global"
+    assert kernels.hist_dense_instance(ids[:1], bins) == "global"
+    assert kernels.hist_dense_instance(
+        torch.zeros((4, 4095), dtype=torch.int32), bins) == "global"
+    offset = torch.zeros(4 * 4096 + 1, dtype=torch.int32)[1:].reshape(4, -1)
+    assert kernels.hist_dense_instance(offset, bins) == "global"
+    assert kernels.hist_cluster_plan(360000, bins) == (11250, 4096)
+    assert kernels.hist_cluster_plan(16, 128) == (1, 128)
+
+
 def _rule_kernel_calls(device, dtype=torch.int32, mask_dtype=torch.uint8):
     mask = torch.zeros((2, 8, 8), dtype=mask_dtype, device=device)
     ids = torch.zeros((2, 64), dtype=dtype, device=device)
