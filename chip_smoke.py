@@ -13,7 +13,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
   3. a 100-tree forest fitted with the port's trainer on rule labels of
      scene 0's stack;
   4. the supervised path's kernels against their plain PyTorch versions
-     on the card, at the path's shapes (bit-equal outputs required),
+     on the card, at the path's shapes (bit-equal outputs required):
+     ``lut_hist`` in its three variants on the batch, scene 0, a
+     7 x 601 x 599 scene and scene 0 in views whose bases sit 1 and 4
+     bytes past alignment (each on the unit it must take),
      with a 20-class forest fitted by the port's trainer beside the path's
      own (the forest kernel sums classes in chunks of 16), and a large
      forest (100 trees on 2 000 sampled pixels, some 6 000 leaves) whose
@@ -23,7 +26,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
      label agreement with the card);
   6. the supervised kernels' numbers: back to back, with the L2 flushed
      before each call, and each kernel alone in a torch.profiler trace
-     (``tools/kernel_times.py``), the large forest's too;
+     (``tools/kernel_times.py``), the large forest's too; the kernels a
+     ``lut_hist`` call launches (``skip_hist``: its kernel alone);
   7. the rule path's kernels against their plain versions on the card,
      bit-equal: the 24 first-stage masks of the batch with their run-rank
      seeds and ids, speckle masks, a serpentine mask, a 3 x 599 x 601
@@ -61,12 +65,14 @@ Phases, in order; any failed check raises and the script exits non-zero:
      ``fused_spectral_indices`` on the batch's normalised bands and on
      bands whose EVI denominators sit at the 1e-3 guard;
      ``fused_calibrate_stretch`` on a 16-bit and a float 7 x 600 x 600
-     scene with positive and negative gains; ``glcm_grid`` on the batch's
-     eight NIR texture bands at the default configuration, at levels 8 /
-     window 12, on a band with flat windows, at levels 256 (counts in
-     global memory), at window 23 (which does not divide 600), at levels 1
-     and 2, on inputs from -1 to levels, and with 16 offsets, some
-     negative;
+     scene with positive and negative gains, on the host and on the card,
+     a float scene with a NaN, a flat band, uint8 DNs, a 7 x 601 x 599
+     scene, and 7 x 6000 x 6000 16-bit and float scenes (the streamed
+     instance); ``glcm_grid`` on the batch's eight NIR texture bands at
+     the default configuration, at levels 8 / window 12, on a band with
+     flat windows, at levels 256 (counts in global memory), at window 23
+     (which does not divide 600), at levels 1 and 2, on inputs from -1 to
+     levels, and with 16 offsets, some negative;
  14. the path: scene 0 (uint8) through ``preprocess_bands`` and a 16-bit
      copy of it (DN * 257 plus seeded noise) through the f32 route, each
      into ``extract_features``, with launch counts read around each run
@@ -76,8 +82,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
      ``include_gabor`` and ``hierarchical_stack_fused``; scene 0 again on
      the CPU (every key within the CPU tests' bounds);
  15. the stage kernels' numbers, each call timed with the L2 flushed
-     before it, and what the two fused kernels would save inside the
-     supervised stack (printed, not routed); then the
+     before it (the stretch with host gains, as stage 1 passes them, and
+     with gains on the card); the kernels a stretch call launches (its
+     kernel alone, no host-to-device copy); what the two fused kernels
+     would save inside the supervised stack (printed, not routed); then the
      card's line, the kernels' JSON line and the result line.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs no
@@ -100,8 +108,9 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from rs_image_segmentation_tpu_torch.tools.kernel_times import (  # noqa: E402
-    cold_ms, graph_cc_masks, kernel_device_ms, kernel_numbers, l2_flusher,
-    large_forest, launched_kernels, mean_numbers, reflected_tiling)
+    cold_ms, dn16, graph_cc_masks, kernel_device_ms, kernel_numbers,
+    l2_flusher, large_forest, launch_numbers, launched_kernels, mean_numbers,
+    reflected_tiling, stage1_dns)
 
 BATCH, BANDS, HEIGHT, WIDTH = 8, 7, 600, 600
 N_TREES = 100
@@ -888,13 +897,6 @@ def flat_window_band(h: int, w: int) -> np.ndarray:
     return q
 
 
-def dn16(scene: np.ndarray) -> np.ndarray:
-    """A 16-bit scene from a uint8 one: DN * 257 plus seeded noise in
-    [0, 257)."""
-    noise = np.random.default_rng(SEED + 32).integers(0, 257, scene.shape)
-    return scene.astype(np.uint16) * 257 + noise.astype(np.uint16)
-
-
 def stage_phases(dev, cfg, scenes, luts, scenes_d, luts_d) -> list:
     """Phases 13-15: the stage kernels against their plain versions, stage
     1 (uint8 and 16-bit) into stage 2 with launch counts, times and the
@@ -948,30 +950,68 @@ def stage_phases(dev, cfg, scenes, luts, scenes_d, luts_d) -> list:
                      f"zeros")
         print(f"check fused_spectral_indices [{label}] at "
               f"{tuple(x.shape)}: bit-equal{extra}", flush=True)
-    scene16 = dn16(scenes[0])
-    float_dn = (scenes[0].astype(np.float32) * 1.37 + np.random.default_rng(
-        SEED + 33).random(scenes[0].shape, dtype=np.float32))
-    for label, dn, gg in (("uint16, gains", scene16, gains),
-                          ("uint16, negative gains", scene16, neg),
-                          ("f32, gains", float_dn, gains),
-                          ("f32, negative gains", float_dn, neg)):
-        x = torch.from_numpy(dn).to(dev)
-        got = kernels.fused_calibrate_stretch(x, gg, biases)
-        ref = kernels.fused_calibrate_stretch_plain(x, gg, biases)
+    dns = stage1_dns(scenes[0])
+    scene16, float_dn = dns["uint16"], dns["f32"]
+    nan_dn = float_dn.copy()
+    nan_dn[3, HEIGHT // 2, WIDTH // 3] = np.nan
+    flat_dn = scene16.copy()
+    flat_dn[2] = 777
+    big = reflected_tiling(scenes[0], LARGE)
+    gains_card = torch.from_numpy(neg).to(dev)
+    biases_card = torch.from_numpy(biases).to(dev)
+    stretch_cases = (
+        ("uint16, gains", scene16, gains, biases),
+        ("uint16, negative gains", scene16, neg, biases),
+        ("uint16, negative gains on the card", scene16, gains_card,
+         biases_card),
+        ("f32, gains", float_dn, gains, biases),
+        ("f32, negative gains", float_dn, neg, biases),
+        ("f32 with a NaN", nan_dn, gains, biases),
+        ("uint16, a flat band", flat_dn, gains, biases),
+        ("uint8, gains", scenes[0], gains, biases),
+        ("uint16, 601 x 599 (units of one pixel)", stage1_dns(
+            np.random.default_rng(SEED + 34).integers(
+                0, 256, (BANDS, 601, 599), dtype=np.uint8))["uint16"],
+         neg, biases),
+        (f"uint16, {LARGE} x {LARGE}", lambda: dn16(big),
+         gains, biases),
+        (f"f32, {LARGE} x {LARGE}, negative gains on the card",
+         lambda: big.astype(np.float32) * 1.37, gains_card, biases_card))
+    for label, dn, gg, bb in stretch_cases:
+        x = torch.from_numpy(dn() if callable(dn) else dn).to(dev)
+        got = kernels.fused_calibrate_stretch(x, gg, bb)
+        ref = kernels.fused_calibrate_stretch_plain(x, gg, bb)
         torch.cuda.synchronize()
         diff = bits_equal(got, ref)
         errs["fused_calibrate_stretch"] = max(
             errs["fused_calibrate_stretch"], finite_err(got, ref))
         check(diff == 0, f"fused_calibrate_stretch [{label}] bit-equal "
               f"({diff} differ)")
-        # (x * 255) / x rounds twice, so the top need not be 255 exactly
-        lo, hi = float(got.min()), float(got.max())
-        check(bool(torch.isfinite(got).all()) and lo == 0.0
-              and abs(hi - 255.0) < 1e-3,
-              f"fused_calibrate_stretch [{label}] spans [0, 255]: "
-              f"[{lo}, {hi}]")
+        c, h, w = x.shape
+        span, instance = kernels.calibrate_stretch_plan(h * w,
+                                                        x.element_size())
+        check(instance == ("streamed" if h == LARGE else "staged"),
+              f"fused_calibrate_stretch [{label}] instance {instance}")
+        special = ("NaN" in label or "flat" in label)
+        band = 3 if "NaN" in label else 2
+        if special:     # that band NaN, the others stretched
+            check(bool(torch.isnan(got[band]).all())
+                  and bool(torch.isfinite(got[band + 1]).all()),
+                  f"fused_calibrate_stretch [{label}]: band {band} NaN, "
+                  f"band {band + 1} finite")
+        else:
+            # (x * 255) / x rounds twice, so the top need not be 255
+            lo, hi = float(got.min()), float(got.max())
+            check(bool(torch.isfinite(got).all()) and lo == 0.0
+                  and abs(hi - 255.0) < 1e-3,
+                  f"fused_calibrate_stretch [{label}] spans [0, 255]: "
+                  f"[{lo}, {hi}]")
         print(f"check fused_calibrate_stretch [{label}] at {tuple(x.shape)}:"
-              f" bit-equal", flush=True)
+              f" bit-equal, {instance} instance, {span} pixels a block",
+              flush=True)
+        del x, got, ref
+    del big
+    torch.cuda.empty_cache()
     q_batch = (tex01 * (g.levels - 1)).to(torch.uint8).to(torch.int32)
 
     def rand_levels(lo, hi, seed):
@@ -1164,16 +1204,30 @@ def stage_phases(dev, cfg, scenes, luts, scenes_d, luts_d) -> list:
     # back-to-back calls would read them from there)
     n = HEIGHT * WIDTH
     flush = l2_flusher(dev)
-    # gains and biases on the card, as preprocess_bands_f32 passes them
+    # the configuration's host values, as preprocess_bands_f32 passes them
+    def stretch_call():
+        return kernels.fused_calibrate_stretch(scene16_d, gains64, biases64)
+
+    stretch_launch = launch_numbers(stretch_call)
+    check(len(stretch_launch["kernels_a_call_launches"]) == 1
+          and "calibrate_stretch_kernel" in stretch_launch[
+              "kernels_a_call_launches"][0]
+          and not stretch_launch["htod_memcpy"],
+          f"a fused_calibrate_stretch call with host gains launches its "
+          f"kernel and nothing else, no copy: {stretch_launch}")
+    print(f"a fused_calibrate_stretch call launches "
+          f"{stretch_launch['kernels_a_call_launches']}, host-to-device "
+          f"copy: {stretch_launch['htod_memcpy']}", flush=True)
     gains_d = torch.from_numpy(gains).to(dev)
     biases_d = torch.from_numpy(biases).to(dev)
+    stretch_card_ms = cold_ms(lambda: kernels.fused_calibrate_stretch(
+        scene16_d, gains_d, biases_d), flush)
     q0 = (t01 * (g.levels - 1)).to(torch.uint8).to(torch.int32)
     calls = {
         "fused_calibrate_stretch": (
-            lambda: kernels.fused_calibrate_stretch(scene16_d, gains_d,
-                                                    biases_d),
+            stretch_call,
             lambda: kernels.fused_calibrate_stretch_plain(
-                scene16_d, gains_d, biases_d), "calibrate_stretch_kernel"),
+                scene16_d, gains64, biases64), "calibrate_stretch_kernel"),
         "fused_spectral_indices": (
             lambda: kernels.fused_spectral_indices(b01),
             lambda: kernels.fused_spectral_indices_plain(b01),
@@ -1258,7 +1312,11 @@ def stage_phases(dev, cfg, scenes, luts, scenes_d, luts_d) -> list:
     rows[1]["supervised_stack_kernel_ms"] = kern_idx
     rows[2]["supervised_stack_xla_ms"] = stack_glcm
     rows[2]["supervised_stack_kernel_ms"] = kern_glcm
+    print(f"fused_calibrate_stretch with gains on the card: "
+          f"{stretch_card_ms:.4f} ms (L2 flushed)")
     rows[0]["family_ms"] = fam
+    rows[0]["ms_gains_on_the_card"] = stretch_card_ms
+    rows[0].update(stretch_launch)
     return rows
 
 
@@ -1329,24 +1387,58 @@ def main() -> int:
 
     # ---- 4. kernels against their plain versions on the card
     errs = {}
-    shp = scenes_d.shape
-    for label, kw in (("sp+skip_hist", dict(sp=params_d, skip_hist=True)),
-                      ("sp+hist", dict(sp=params_d)),
-                      ("table+out_u8", dict(out_u8=True))):
-        got = kernels.lut_hist(scenes_d, luts_d, **kw)
-        ref = kernels.lut_hist_plain(scenes_d, luts_d,
-                                     out_u8=kw.get("out_u8", False),
-                                     skip_hist=kw.get("skip_hist", False))
-        got = got if isinstance(got, tuple) else (got,)
-        ref = ref if isinstance(ref, tuple) else (ref,)
-        torch.cuda.synchronize()
-        for g, r in zip(got, ref):
-            check(g.shape == r.shape and g.dtype == r.dtype,
-                  f"lut_hist {label} shape/dtype")
-            err = (g.double() - r.double()).abs().max().item()
-            check(err == 0, f"lut_hist {label} bit-equal (max err {err})")
-            errs["lut_hist"] = max(errs.get("lut_hist", 0.0), err)
-        print(f"check lut_hist [{label}] at {tuple(shp)}: bit-equal")
+    rng = np.random.default_rng(SEED + 35)
+    ragged = torch.from_numpy(rng.integers(0, 256, (BANDS, 601, 599),
+                                           dtype=np.uint8)).to(dev)
+    ragged_lut = torch.from_numpy(rng.integers(0, 256, (BANDS, 256),
+                                               dtype=np.uint8)).to(dev)
+    ragged_sp = torch.zeros((BANDS, 3), dtype=torch.int32, device=dev)
+    # scene 0 in views whose bases sit 1 and 4 bytes past an aligned one
+    views = {}
+    for off in (1, 4):
+        buf = torch.empty(scenes_d[0].numel() + 16, dtype=torch.uint8,
+                          device=dev)
+        views[off] = buf[off:off + scenes_d[0].numel()].view(
+            scenes_d[0].shape)
+        views[off].copy_(scenes_d[0])
+    lut_cases = {"the batch": (scenes_d, luts_d, params_d),
+                 "scene 0": (scenes_d[0], luts_d[0], params_d[0]),
+                 "601 x 599 (planes of n % 4 == 3)": (ragged, ragged_lut,
+                                                      ragged_sp),
+                 "scene 0 at a base 1 byte past alignment": (
+                     views[1], luts_d[0], params_d[0]),
+                 "scene 0 at a base 4 bytes past alignment": (
+                     views[4], luts_d[0], params_d[0])}
+    units = {}
+    for where, (sc, lt, sp) in lut_cases.items():
+        for label, kw in (("sp+skip_hist", dict(sp=sp, skip_hist=True)),
+                          ("sp+hist", dict(sp=sp)),
+                          ("table+out_u8", dict(out_u8=True))):
+            got = kernels.lut_hist(sc, lt, **kw)
+            ref = kernels.lut_hist_plain(sc, lt,
+                                         out_u8=kw.get("out_u8", False),
+                                         skip_hist=kw.get("skip_hist", False))
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            torch.cuda.synchronize()
+            for g, r in zip(got, ref):
+                check(g.shape == r.shape and g.dtype == r.dtype,
+                      f"lut_hist {label} [{where}] shape/dtype")
+                err = (g.double() - r.double()).abs().max().item()
+                check(err == 0, f"lut_hist {label} [{where}] bit-equal (max "
+                      f"err {err})")
+                errs["lut_hist"] = max(errs.get("lut_hist", 0.0), err)
+            unit = units[(where, label)] = kernels.lut_hist_unit(sc, got[0])
+            instance = kernels.lut_hist_instance(
+                sc.numel() // sc.shape[-1] // sc.shape[-2],
+                sc.shape[-1] * sc.shape[-2], unit, "skip_hist" in kw)
+            print(f"check lut_hist [{label}] [{where}] at {tuple(sc.shape)}"
+                  f": bit-equal, {unit} pixels a unit, {instance} instance")
+    check(units[("scene 0 at a base 1 byte past alignment", "sp+hist")] == 1
+          and units[("scene 0 at a base 4 bytes past alignment",
+                     "sp+hist")] == 4
+          and units[("the batch", "table+out_u8")] == 16,
+          f"lut_hist units by alignment: {units}")
 
     stacks = turbo.hierarchical_stack_turbo_cm(scenes_d, luts_d, cfg,
                                                device=dev)
@@ -1444,6 +1536,23 @@ def main() -> int:
     flush = l2_flusher(dev)
     lut_nums = kernel_numbers(lambda: kernels.lut_hist(
         scenes_d, luts_d, sp=params_d, skip_hist=True), flush)
+    lut_launch = launch_numbers(lambda: kernels.lut_hist(
+        scenes_d, luts_d, sp=params_d, skip_hist=True))
+    lut_hist_launch = launch_numbers(lambda: kernels.lut_hist(
+        scenes_d[0], luts_d[0], sp=params_d[0]))
+    check(len(lut_launch["kernels_a_call_launches"]) == 1
+          and "lut_hist_kernel" in lut_launch["kernels_a_call_launches"][0]
+          and not lut_launch["htod_memcpy"],
+          f"a skip_hist call of lut_hist launches its kernel and nothing "
+          f"else: {lut_launch}")
+    check(len(lut_hist_launch["kernels_a_call_launches"]) == 1
+          and "lut_hist_cluster_kernel" in lut_hist_launch[
+              "kernels_a_call_launches"][0],
+          f"a call of lut_hist with the histogram (scene 0) launches the "
+          f"cluster instance and no zero fill: {lut_hist_launch}")
+    print(f"a lut_hist call launches {lut_launch['kernels_a_call_launches']}"
+          f" (skip_hist), {lut_hist_launch['kernels_a_call_launches']} "
+          f"(with the histogram)", flush=True)
     forest_nums = kernel_numbers(lambda: kernels.forest_labels(gf, x_cm),
                                  flush, 5, 10, 5)
     big_nums = kernel_numbers(lambda: kernels.forest_labels(gf_big, x_cm),
@@ -1470,7 +1579,9 @@ def main() -> int:
              "widened beforehand (no histogram)",
              bound(lut_bytes, planes * n), 395,
              {"bytes": lut_bytes, "ops": planes * n,
-              **timing_keys(lut_nums)}),
+              **timing_keys(lut_nums), **lut_launch,
+              "kernels_a_histogram_call_launches": lut_hist_launch[
+                  "kernels_a_call_launches"]}),
             ("forest_labels", forest_ms, forest_plain_ms, None,
              "no single PyTorch call computes a forest's labels",
              bound(forest_bytes, forest_ops), 647,

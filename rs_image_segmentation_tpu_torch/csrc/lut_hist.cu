@@ -7,145 +7,400 @@
 // What bounds it on an H100: bytes. It reads each scene byte once and
 // writes one f32 (or u8) per byte, with a handful of integer ops per
 // pixel: at the main-path shape (8 x 7 x 600 x 600, f32 out) that is
-// 20.2 MB in + 80.6 MB out, about 30 us at 3.35 TB/s.
+// 20.2 MB in + 80.6 MB out, about 30 us at 3.35 TB/s. Four fifths of the
+// bytes are the f32 stores.
+//
+// What held the first design back: a thread turned one 16-byte load into
+// four float4 stores 64 bytes apart, so each store instruction of a warp
+// wrote a quarter of every line it touched; a thread had about one load
+// in flight; one block column per plane made 4 928 small blocks, each
+// filling a table and passing a barrier for 4 KB of input; every lookup
+// was a byte load and a convert.
 //
 // What the design does about it:
-//   * One block column per plane (blockIdx.y = batch*band), so a block
-//     stages exactly one 256-byte table in shared memory; the lookup is a
-//     shared-memory byte read, as cheap as the arithmetic route the TPU
-//     kernel added (on the TPU a table lookup costs an MXU one-hot).
+//   * Words. A thread loads 4 consecutive DNs as one 32-bit word and
+//     writes their 4 levels as one float4: a warp reads 128 contiguous
+//     bytes and writes 512 per instruction, whole lines. With uint8 out a
+//     thread moves 16 DNs, one 16-byte load and one 16-byte store.
+//   * A grid sized to the card: LUT_BLOCKS_PER_SM blocks an SM
+//     (ops/kernels.py::lut_hist_plan), each streaming one contiguous
+//     range of `span` words of the flat (planes x n) scene, kUnroll
+//     independent loads in flight per thread before the first lookup.
+//   * A block stages the tables of the planes its range touches (two at
+//     the main path's shape) in shared memory as 32-bit entries, f32 for
+//     f32 out, so a lookup is one 32-bit shared load and no convert. A
+//     range touches at most kMaxTables planes (the plan's cap on span).
+//   * Plane lengths that are not a multiple of the unit: the units wholly
+//     inside a plane take the vector route; the one unit that straddles a
+//     plane boundary is done byte by byte. Bases that are not aligned for
+//     the unit, or planes shorter than it, take a smaller unit, down to
+//     the scalar instance (one byte a unit). No padding.
+//   * The histogram: each warp counts into its own 256 bins in shared
+//     memory, and a thread adds each distinct value of its word once with
+//     the count of its repeats, so smooth regions, where the four pixels
+//     of a word mostly share a level, do not serialise on one bin.
+//     Planes that split into whole units take the cluster instance
+//     (lut_hist_cluster_kernel): one cluster of kCluster blocks per plane
+//     sums its blocks' bins through distributed shared memory and writes
+//     each bin once, so the output needs no zero fill and the call is one
+//     launch. Other shapes take the ranges kernel with kHist: at the end of
+//     each plane a block adds each nonzero bin of its warps' sums into the
+//     zeroed (planes, 256) output with one global atomic, and bytes of
+//     straddling words add into it directly. Integer sums are exact in any
+//     order. ops/kernels.py::lut_hist_instance picks the instance.
 //   * Every band is served from the table. The fixed-point params `sp`
 //     (build_stretch_params, mode 1) are only shape-checked by the
 //     wrapper: build_stretch_params guarantees mode-1 arithmetic equals
 //     lut[dn] for every DN present in the scene, so the output is
 //     bit-equal either way.
-//   * Each thread moves 16 input bytes per step (one 16-byte load, four
-//     16-byte f32 stores or one 16-byte u8 store) when the plane length is
-//     a multiple of 16; other lengths take a byte-wise loop. The ragged
-//     edge is masked here, with no padding.
-//   * The histogram counts stretched values directly in a per-block
-//     shared-memory int array (atomicAdd), then adds each nonzero bin into
-//     the (planes, 256) int32 output with one global atomicAdd. Integer
-//     atomics are exact in any order. The output must be zeroed first.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;   // == table size: one entry per thread
-constexpr int kVec = 16;        // bytes per thread per step on the vector path
-constexpr int kMaxBlocksPerPlane = 128;
+constexpr int kThreads = 256;      // LUT_THREADS; == the bins a thread sums
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 8;         // LUT_UNROLL: loads in flight per thread
+constexpr int kMaxTables = 32;     // LUT_MAX_TABLES: tables a block stages
+constexpr int kCluster = 16;       // LUT_CLUSTER: blocks a plane (cluster)
+constexpr int kBinsPerRank = 256 / kCluster;
 
+// A table entry: f32 when the output is f32 and no bin is needed, else
+// the level as an integer.
 template <bool kOutU8, bool kHist>
-__device__ __forceinline__ void store16(const uint8_t* s_lut, int* s_hist,
-                                        uint4 v, void* out, long long i) {
-  const uint8_t* b = reinterpret_cast<const uint8_t*>(&v);
-  uint8_t o[kVec];
-#pragma unroll
-  for (int k = 0; k < kVec; ++k) {
-    o[k] = s_lut[b[k]];
-    if (kHist) atomicAdd(&s_hist[o[k]], 1);
-  }
-  if (kOutU8) {
-    uint4 w;
-    uint8_t* wb = reinterpret_cast<uint8_t*>(&w);
-#pragma unroll
-    for (int k = 0; k < kVec; ++k) wb[k] = o[k];
-    reinterpret_cast<uint4*>(out)[i] = w;
+using Entry =
+    typename std::conditional<kOutU8 || kHist, uint32_t, float>::type;
+
+// One shared atomic per distinct value of a word, with its repeat count.
+__device__ __forceinline__ void count_word(int* bins, uint32_t a, uint32_t b,
+                                          uint32_t c, uint32_t d) {
+  atomicAdd(bins + a, 1 + (b == a) + (c == a) + (d == a));
+  if (b != a) atomicAdd(bins + b, 1 + (c == b) + (d == b));
+  if (c != a && c != b) atomicAdd(bins + c, 1 + (d == c));
+  if (d != a && d != b && d != c) atomicAdd(bins + d, 1);
+}
+
+template <int kW> struct Unit;
+template <> struct Unit<16> { using type = uint4; };
+template <> struct Unit<4> { using type = uint32_t; };
+template <> struct Unit<1> { using type = uint8_t; };
+
+// The levels of a word's 4 DNs as one word of bytes (uint8 out).
+template <bool kHist>
+__device__ __forceinline__ uint32_t word_u8(const uint32_t* tab, int* bins,
+                                            uint32_t v) {
+  const uint32_t t0 = tab[v & 0xff], t1 = tab[(v >> 8) & 0xff];
+  const uint32_t t2 = tab[(v >> 16) & 0xff], t3 = tab[v >> 24];
+  if constexpr (kHist) count_word(bins, t0, t1, t2, t3);
+  return t0 | (t1 << 8) | (t2 << 16) | (t3 << 24);
+}
+
+// Unit i (kW pixels from pixel kW * i) through the table `tab`.
+template <int kW, bool kOutU8, bool kHist, typename E>
+__device__ __forceinline__ void put(const E* tab, int* bins,
+                                    typename Unit<kW>::type v, void* out,
+                                    long long i) {
+  if constexpr (kW == 16) {         // uint8 out only
+    static_cast<uint4*>(out)[i] = make_uint4(
+        word_u8<kHist>(tab, bins, v.x), word_u8<kHist>(tab, bins, v.y),
+        word_u8<kHist>(tab, bins, v.z), word_u8<kHist>(tab, bins, v.w));
+  } else if constexpr (kW == 4 && kOutU8) {
+    static_cast<uint32_t*>(out)[i] = word_u8<kHist>(tab, bins, v);
+  } else if constexpr (kW == 4) {
+    const E t0 = tab[v & 0xff], t1 = tab[(v >> 8) & 0xff];
+    const E t2 = tab[(v >> 16) & 0xff], t3 = tab[v >> 24];
+    if constexpr (kHist) count_word(bins, t0, t1, t2, t3);
+    static_cast<float4*>(out)[i] =
+        make_float4(static_cast<float>(t0), static_cast<float>(t1),
+                    static_cast<float>(t2), static_cast<float>(t3));
   } else {
-    float4* dst = reinterpret_cast<float4*>(out) + 4 * i;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      dst[q] = make_float4(o[4 * q], o[4 * q + 1], o[4 * q + 2],
-                           o[4 * q + 3]);
+    const E t = tab[v];
+    if constexpr (kHist) atomicAdd(bins + t, 1);
+    if constexpr (kOutU8) {
+      static_cast<uint8_t*>(out)[i] = static_cast<uint8_t>(t);
+    } else {
+      static_cast<float*>(out)[i] = static_cast<float>(t);
     }
   }
 }
 
-template <bool kOutU8, bool kHist, bool kVecPath>
+template <int kW, bool kOutU8, bool kHist>
 __global__ void __launch_bounds__(kThreads)
 lut_hist_kernel(const uint8_t* __restrict__ scene,
                 const uint8_t* __restrict__ lut, void* __restrict__ out,
-                int32_t* __restrict__ hist, long long n) {
-  __shared__ uint8_t s_lut[256];
-  __shared__ int s_hist[256];
-  const long long plane = blockIdx.y;
-  s_lut[threadIdx.x] = lut[plane * 256 + threadIdx.x];
-  if (kHist) s_hist[threadIdx.x] = 0;
+                int32_t* __restrict__ hist, long long planes, long long n,
+                long long units, long long span) {
+  using E = Entry<kOutU8, kHist>;
+  using U = typename Unit<kW>::type;
+  extern __shared__ uint32_t s_tab_words[];      // tables of planes p0..p1
+  E* s_tab = reinterpret_cast<E*>(s_tab_words);
+  __shared__ int s_bins[kHist ? kWarps : 1][256];
+
+  const long long total = planes * n;
+  const long long lo = blockIdx.x * span;
+  const long long hi = lo + span < units ? lo + span : units;
+  const long long end_px = hi * kW < total ? hi * kW : total;
+  const long long p0 = lo * kW / n;
+  const long long p1 = (end_px - 1) / n;
+  for (long long i = threadIdx.x; i < (p1 - p0 + 1) * 256; i += kThreads) {
+    s_tab[i] = static_cast<E>(lut[p0 * 256 + i]);
+  }
+  if constexpr (kHist) {
+    for (int i = threadIdx.x; i < kWarps * 256; i += kThreads) {
+      (&s_bins[0][0])[i] = 0;
+    }
+  }
   __syncthreads();
 
-  const uint8_t* src = scene + plane * n;
-  const long long step = (long long)gridDim.x * kThreads;
-  const long long first = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (kVecPath) {
-    // n % 16 == 0 and every base 16-byte aligned (checked by the host)
-    void* dst = kOutU8
-        ? static_cast<void*>(static_cast<uint8_t*>(out) + plane * n)
-        : static_cast<void*>(static_cast<float*>(out) + plane * n);
-    const uint4* src4 = reinterpret_cast<const uint4*>(src);
-    const long long nv = n / kVec;
-    for (long long i = first; i < nv; i += step) {
-      store16<kOutU8, kHist>(s_lut, s_hist, src4[i], dst, i);
+  int* bins = kHist ? s_bins[threadIdx.x / 32] : nullptr;
+  const U* src = reinterpret_cast<const U*>(scene);
+  for (long long p = p0; p <= p1; ++p) {
+    const E* tab = s_tab + (p - p0) * 256;
+    // the units wholly inside plane p, within this block's range
+    const long long first = (p * n + kW - 1) / kW;
+    const long long last = (p + 1) * n / kW;
+    const long long ws = first > lo ? first : lo;
+    const long long we = last < hi ? last : hi;
+    for (long long base = ws + threadIdx.x; base < we;
+         base += kThreads * kUnroll) {
+      U v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long i = base + u * kThreads;
+        if (i < we) v[u] = src[i];
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long i = base + u * kThreads;
+        if (i < we) put<kW, kOutU8, kHist>(tab, bins, v[u], out, i);
+      }
     }
-  } else {
-    for (long long i = first; i < n; i += step) {
-      const uint8_t o = s_lut[src[i]];
-      if (kHist) atomicAdd(&s_hist[o], 1);
-      if (kOutU8) {
-        static_cast<uint8_t*>(out)[plane * n + i] = o;
-      } else {
-        static_cast<float*>(out)[plane * n + i] = static_cast<float>(o);
+    if constexpr (kHist) {         // plane p's counts: one atomic a bin
+      __syncthreads();
+      int sum = 0;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        sum += s_bins[w][threadIdx.x];
+        s_bins[w][threadIdx.x] = 0;
+      }
+      if (sum) atomicAdd(&hist[p * 256 + threadIdx.x], sum);
+      __syncthreads();
+    }
+  }
+
+  // the word that straddles each plane boundary in this range (and the
+  // scene's last, partial word), byte by byte
+  if (kW > 1 && n % kW != 0) {
+    for (long long p = p0 + 1 + threadIdx.x; p <= p1 + 1; p += kThreads) {
+      const long long b = p * n;               // first pixel of plane p
+      const long long w = b / kW;
+      if (b % kW == 0 || w < lo || w >= hi) continue;
+      const long long stop = w * kW + kW < total ? w * kW + kW : total;
+      for (long long j = w * kW; j < stop; ++j) {
+        const long long q = j < b ? p - 1 : p;
+        const E t = s_tab[(q - p0) * 256 + scene[j]];
+        if constexpr (kHist) {
+          atomicAdd(&hist[q * 256 + static_cast<int>(t)], 1);
+        }
+        if constexpr (kOutU8) {
+          static_cast<uint8_t*>(out)[j] = static_cast<uint8_t>(t);
+        } else {
+          static_cast<float*>(out)[j] = static_cast<float>(t);
+        }
       }
     }
   }
-  if (kHist) {
-    __syncthreads();
-    const int c = s_hist[threadIdx.x];
-    if (c) atomicAdd(&hist[plane * 256 + threadIdx.x], c);
+}
+
+// The histogram's cluster instance: one cluster of kCluster blocks per
+// plane (blockIdx.y); block r streams the plane's units [r * span,
+// (r + 1) * span) into its warps' bins, sums them, and after a cluster
+// barrier writes bins [r * 16, r * 16 + 16) of the plane, summed over the
+// cluster's blocks through distributed shared memory: every bin written
+// once, so the output needs no zero fill. Planes of n % kW == 0 only.
+template <int kW, bool kOutU8>
+__global__ void __launch_bounds__(kThreads)
+lut_hist_cluster_kernel(const uint8_t* __restrict__ scene,
+                        const uint8_t* __restrict__ lut,
+                        void* __restrict__ out, int32_t* __restrict__ hist,
+                        long long n, long long span) {
+  using U = typename Unit<kW>::type;
+  __shared__ uint32_t s_tab[256];
+  __shared__ int s_bins[kWarps][256];
+  __shared__ int s_sum[256];
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long p = blockIdx.y;
+  s_tab[threadIdx.x] = lut[p * 256 + threadIdx.x];
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) s_bins[w][threadIdx.x] = 0;
+  __syncthreads();
+
+  const long long end = (p + 1) * (n / kW);
+  const long long lo = p * (n / kW) + rank * span;
+  const long long hi = lo + span < end ? lo + span : end;
+  int* bins = s_bins[threadIdx.x / 32];
+  const U* src = reinterpret_cast<const U*>(scene);
+  for (long long base = lo + threadIdx.x; base < hi;
+       base += kThreads * kUnroll) {
+    U v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = base + u * kThreads;
+      if (i < hi) v[u] = src[i];
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = base + u * kThreads;
+      if (i < hi) put<kW, kOutU8, true>(s_tab, bins, v[u], out, i);
+    }
   }
+  __syncthreads();
+  int sum = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) sum += s_bins[w][threadIdx.x];
+  s_sum[threadIdx.x] = sum;
+  cluster.sync();                      // every block's sums are in place
+  if (threadIdx.x < kBinsPerRank) {
+    const int bin = rank * kBinsPerRank + threadIdx.x;
+    int total = 0;
+#pragma unroll
+    for (int q = 0; q < kCluster; ++q) {
+      total += cluster.map_shared_rank(s_sum, q)[bin];
+    }
+    hist[p * 256 + bin] = total;
+  }
+  cluster.sync();                      // no block leaves while others read
+}
+
+template <int kW, bool kOutU8>
+cudaError_t launch_cluster(long long planes, cudaStream_t stream,
+                           const uint8_t* scene, const uint8_t* lut,
+                           void* out, int32_t* hist, long long n,
+                           long long span) {
+  auto kernel = lut_hist_cluster_kernel<kW, kOutU8>;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  static unsigned long long ready = 0;   // a bit per device: attribute set
+  if (err == cudaSuccess && !(ready >> (dev & 63) & 1)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err == cudaSuccess) ready |= 1ull << (dev & 63);
+  }
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster, static_cast<unsigned>(planes));
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, scene, lut, out, hist, n, span);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <int kW, bool kOutU8, bool kHist>
+cudaError_t launch(long long grid, size_t smem, cudaStream_t stream,
+                   const uint8_t* scene, const uint8_t* lut, void* out,
+                   int32_t* hist, long long planes, long long n,
+                   long long units, long long span) {
+  lut_hist_kernel<kW, kOutU8, kHist>
+      <<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(
+          scene, lut, out, hist, planes, n, units, span);
+  return cudaGetLastError();
 }
 
 template <bool kOutU8, bool kHist>
-void launch(bool vec, dim3 grid, cudaStream_t stream, const uint8_t* scene,
-            const uint8_t* lut, void* out, int32_t* hist, long long n) {
-  if (vec) {
-    lut_hist_kernel<kOutU8, kHist, true>
-        <<<grid, kThreads, 0, stream>>>(scene, lut, out, hist, n);
-  } else {
-    lut_hist_kernel<kOutU8, kHist, false>
-        <<<grid, kThreads, 0, stream>>>(scene, lut, out, hist, n);
+cudaError_t launch_unit(int unit, long long grid, size_t smem,
+                        cudaStream_t s, const uint8_t* sc, const uint8_t* lt,
+                        void* out, int32_t* h, long long planes, long long n,
+                        long long units, long long span) {
+  if constexpr (kOutU8) {
+    if (unit == 16) {
+      return launch<16, true, kHist>(grid, smem, s, sc, lt, out, h, planes,
+                                     n, units, span);
+    }
   }
+  return unit == 4
+      ? launch<4, kOutU8, kHist>(grid, smem, s, sc, lt, out, h, planes, n,
+                                 units, span)
+      : launch<1, kOutU8, kHist>(grid, smem, s, sc, lt, out, h, planes, n,
+                                 units, span);
 }
 
 }  // namespace
 
 // scene: (planes, n) uint8; lut: (planes, 256) uint8; out: (planes, n) f32
-// or uint8 (out_u8 != 0); hist: (planes, 256) int32, zero-filled, or null
-// to skip the histogram. Returns the cudaError_t of the launch.
+// or uint8 (out_u8 != 0); hist: (planes, 256) int32, or null to skip the
+// histogram. unit: the pixels a thread moves at a time
+// (ops/kernels.py::lut_hist_unit): 16 (uint8 out, both bases 16-byte
+// aligned), 4 (scene 4-byte aligned, out 16-byte aligned, or 4-byte
+// aligned for uint8 out) or 1, with n >= unit. cluster != 0 takes the
+// histogram's cluster instance (unit 4 or 16, n % unit == 0, planes <=
+// 65535, span = ceil(n / unit / kCluster)), which writes every bin; else
+// span is the units of the flat scene each block takes, at most
+// (kMaxTables - 1) * n / unit (ops/kernels.py::lut_hist_plan), and hist
+// must be zero-filled. Returns the cudaError_t of the launch.
 extern "C" int lut_hist_launch(const void* scene, const void* lut, void* out,
-                               void* hist, int out_u8, int planes,
-                               long long n, void* stream) {
-  if (planes <= 0 || planes > 65535 || n <= 0) {
+                               void* hist, int out_u8, long long planes,
+                               long long n, int unit, long long span,
+                               int cluster, void* stream) {
+  const uintptr_t sc = reinterpret_cast<uintptr_t>(scene);
+  const uintptr_t ot = reinterpret_cast<uintptr_t>(out);
+  const bool unit_ok = unit == 1
+      || (unit == 4 && sc % 4 == 0 && ot % (out_u8 ? 4 : 16) == 0)
+      || (unit == 16 && out_u8 && sc % 16 == 0 && ot % 16 == 0);
+  if (planes <= 0 || n <= 0 || span <= 0 || !unit_ok || n < unit) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool vec = (n % kVec == 0)
-      && (reinterpret_cast<uintptr_t>(scene) % 16 == 0)
-      && (reinterpret_cast<uintptr_t>(out) % 16 == 0);
-  const long long units = vec ? n / kVec : n;
-  long long bx = (units + kThreads - 1) / kThreads;
-  if (bx > kMaxBlocksPerPlane) bx = kMaxBlocksPerPlane;
-  const dim3 grid(static_cast<unsigned>(bx), static_cast<unsigned>(planes));
   auto s = static_cast<cudaStream_t>(stream);
-  auto sc = static_cast<const uint8_t*>(scene);
+  auto scp = static_cast<const uint8_t*>(scene);
   auto lt = static_cast<const uint8_t*>(lut);
   auto h = static_cast<int32_t*>(hist);
-  if (out_u8) {
-    if (h) launch<true, true>(vec, grid, s, sc, lt, out, h, n);
-    else launch<true, false>(vec, grid, s, sc, lt, out, h, n);
-  } else {
-    if (h) launch<false, true>(vec, grid, s, sc, lt, out, h, n);
-    else launch<false, false>(vec, grid, s, sc, lt, out, h, n);
+  if (cluster) {
+    const long long per = n / unit;
+    if (!h || unit == 1 || n % unit != 0 || planes > 65535
+        || span != (per + kCluster - 1) / kCluster) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    cudaError_t err;
+    if (unit == 16) {
+      err = launch_cluster<16, true>(planes, s, scp, lt, out, h, n, span);
+    } else if (out_u8) {
+      err = launch_cluster<4, true>(planes, s, scp, lt, out, h, n, span);
+    } else {
+      err = launch_cluster<4, false>(planes, s, scp, lt, out, h, n, span);
+    }
+    return static_cast<int>(err);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (span * unit > (kMaxTables - 1) * n) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long units = (planes * n + unit - 1) / unit;
+  const long long grid = (units + span - 1) / span;
+  const long long tables = (span * unit - 1) / n + 2;
+  const size_t smem = static_cast<size_t>(tables < planes ? tables : planes)
+                      * 256 * sizeof(uint32_t);
+  cudaError_t err;
+  if (out_u8) {
+    err = h ? launch_unit<true, true>(unit, grid, smem, s, scp, lt, out, h,
+                                      planes, n, units, span)
+            : launch_unit<true, false>(unit, grid, smem, s, scp, lt, out, h,
+                                       planes, n, units, span);
+  } else {
+    err = h ? launch_unit<false, true>(unit, grid, smem, s, scp, lt, out, h,
+                                       planes, n, units, span)
+            : launch_unit<false, false>(unit, grid, smem, s, scp, lt, out, h,
+                                        planes, n, units, span);
+  }
+  return static_cast<int>(err);
 }

@@ -112,6 +112,62 @@ def lut_hist_plain(scene_u8: torch.Tensor, lut_u8: torch.Tensor,
     return out if skip_hist else (out, histogram256(st))
 
 
+LUT_THREADS = 256        # threads a block (kThreads, csrc/lut_hist.cu)
+LUT_UNROLL = 8           # loads in flight a thread (kUnroll)
+LUT_MAX_TABLES = 32      # tables a block stages at most (kMaxTables)
+LUT_BLOCKS_PER_SM = 4
+LUT_CLUSTER = 16         # blocks a plane of the histogram's cluster instance
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def lut_hist_plan(planes: int, n: int, unit: int, blocks: int
+                  ) -> Tuple[int, int]:
+    """The kernel's partition of a flat ``(planes, n)`` scene into units of
+    ``unit`` pixels (16, 4 or 1, :func:`lut_hist_unit`): ``(grid, span)``,
+    block ``k`` taking units ``[k * span, (k + 1) * span)``. ``blocks``
+    blocks at most (``LUT_BLOCKS_PER_SM`` an SM); ``span`` is capped so
+    that a range touches at most ``LUT_MAX_TABLES`` planes, whose tables
+    the block stages."""
+    units = -(-planes * n // unit)
+    span = min(-(-units // blocks), (LUT_MAX_TABLES - 1) * n // unit)
+    return -(-units // span), span
+
+
+def lut_hist_unit(scene_u8: torch.Tensor, out: torch.Tensor) -> int:
+    """Pixels a thread of the kernel moves at a time: 16 for uint8 out
+    (one 16-byte load, one 16-byte store) when both bases are 16-byte
+    aligned; else 4 (a 32-bit word of DNs in, one float4 or one word of
+    bytes out) when the scene's base is 4-byte aligned and the output's
+    takes the store; else 1 (the scalar instance). Planes shorter than the
+    unit take a smaller one."""
+    n = scene_u8.shape[-1] * scene_u8.shape[-2]
+    sc, ot = scene_u8.data_ptr(), out.data_ptr()
+    u8 = out.dtype == torch.uint8
+    if u8 and n >= 16 and sc % 16 == 0 and ot % 16 == 0:
+        return 16
+    if n >= 4 and sc % 4 == 0 and ot % (4 if u8 else 16) == 0:
+        return 4
+    return 1
+
+
+def lut_hist_instance(planes: int, n: int, unit: int, skip_hist: bool
+                      ) -> str:
+    """Which instance of the kernel takes a call: ``"cluster"`` for the
+    histogram of planes that split into whole units (``n % unit == 0``,
+    ``unit`` 4 or 16, at most 65 535 planes): one cluster of
+    ``LUT_CLUSTER`` blocks a plane, every bin written once; else
+    ``"ranges"``: the blocks of :func:`lut_hist_plan`, adding their counts
+    into a zeroed histogram."""
+    if (not skip_hist and unit > 1 and n % unit == 0
+            and planes <= 65535):
+        return "cluster"
+    return "ranges"
+
+
 def lut_hist(scene_u8: torch.Tensor, lut_u8: torch.Tensor,
              out_u8: bool = False, sp: "torch.Tensor | None" = None,
              skip_hist: bool = False):
@@ -143,15 +199,27 @@ def lut_hist(scene_u8: torch.Tensor, lut_u8: torch.Tensor,
     dev = scene_u8.device
     out = torch.empty(scene_u8.shape, device=dev,
                       dtype=torch.uint8 if out_u8 else torch.float32)
-    # an accumulator: blocks add their counts into it with atomics
-    hist = (None if skip_hist else
-            torch.zeros((*scene_u8.shape[:-2], 256), dtype=torch.int32,
-                        device=dev))
+    planes, n = scene_u8.numel() // (h * w), h * w
+    unit = lut_hist_unit(scene_u8, out)
+    instance = lut_hist_instance(planes, n, unit, skip_hist)
+    if instance == "cluster":      # every bin written once, by its owner
+        span = -(-n // unit // LUT_CLUSTER)
+        hist = torch.empty((*scene_u8.shape[:-2], 256), dtype=torch.int32,
+                           device=dev)
+    else:
+        _, span = lut_hist_plan(planes, n, unit,
+                                LUT_BLOCKS_PER_SM * _sm_count(dev.index))
+        # an accumulator: blocks add their counts into it with atomics
+        hist = (None if skip_hist else
+                torch.zeros((*scene_u8.shape[:-2], 256), dtype=torch.int32,
+                            device=dev))
     _call("lut_hist", "lut_hist_launch",
-          [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _P],
+          [_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong,
+           ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+           _P],
           scene_u8.data_ptr(), lut_u8.data_ptr(), out.data_ptr(),
-          None if hist is None else hist.data_ptr(), int(out_u8),
-          scene_u8.numel() // (h * w), h * w, _stream(dev))
+          None if hist is None else hist.data_ptr(), int(out_u8), planes,
+          n, unit, span, int(instance == "cluster"), _stream(dev))
     lut_hist.launches += 1
     return out if skip_hist else (out, hist)
 
@@ -747,6 +815,42 @@ def fused_calibrate_stretch_plain(bands: torch.Tensor, gains, biases
     return minmax_stretch_f32(x.to(torch.float32) * g + b)
 
 
+STRETCH_CLUSTER = 16             # blocks a band (kStretchCluster)
+STRETCH_STAGE_BYTES = 100 * 1024  # a staged slice at most (kStretchStageBytes)
+STRETCH_MAX_HOST_BANDS = 128      # bands with host gains (kStretchMaxHostBands)
+
+
+def calibrate_stretch_plan(hw: int, itemsize: int) -> Tuple[int, str]:
+    """The kernel's partition of a band of ``hw`` DNs of ``itemsize`` bytes
+    (``csrc/stretch_indices.cu``): ``(span, instance)``. Block ``r`` of
+    the band's cluster of ``STRETCH_CLUSTER`` takes pixels ``[r * span,
+    (r + 1) * span)``, ``span`` a multiple of 4; the ``"staged"`` instance
+    keeps that slice in shared memory (at most ``STRETCH_STAGE_BYTES``),
+    the ``"streamed"`` one reads it again for the stretch."""
+    per_block = -(-hw // STRETCH_CLUSTER)
+    span = -(-per_block // 4) * 4
+    return span, ("staged" if span * itemsize <= STRETCH_STAGE_BYTES
+                  else "streamed")
+
+
+def _band_values(v, x: torch.Tensor):
+    """One f32 per band of ``x``: a tensor on the card stays there (the
+    kernel reads it); values on the host (a sequence, an array or a CPU
+    tensor) become an f32 array, which the kernel takes by value."""
+    if isinstance(v, torch.Tensor) and v.device.type != "cpu":
+        t = v.to(x.device, torch.float32).contiguous().reshape(-1)
+        _require(t.numel() == x.shape[0], "one gain and bias per band")
+        return t
+    a = np.ascontiguousarray(
+        (v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)),
+        dtype=np.float32).reshape(-1)
+    _require(a.size == x.shape[0], "one gain and bias per band")
+    _require(a.size <= STRETCH_MAX_HOST_BANDS,
+             f"at most {STRETCH_MAX_HOST_BANDS} bands with gains and biases "
+             f"on the host; pass them as tensors on the card")
+    return a
+
+
 def fused_calibrate_stretch(bands: torch.Tensor, gains, biases
                             ) -> torch.Tensor:
     """Stage 1 with the identity warp: ``(C, H, W)`` DNs (uint8, uint16 or
@@ -754,30 +858,32 @@ def fused_calibrate_stretch(bands: torch.Tensor, gains, biases
     W)`` f32 in [0, 255]; the caller truncates to uint8. Per band ``cal =
     DN * gain + bias``, then ``(cal - mn) * 255 / (mx - mn)`` with ``mn``
     and ``mx`` the band's calibrated extremes, right for negative gains
-    too. A flat band divides by zero, as the JAX path does. Bit-equal to
-    :func:`fused_calibrate_stretch_plain`."""
+    too; a NaN among the DNs makes the band NaN, as ``torch.aminmax``
+    does. A flat band divides by zero, as the JAX path does. Bit-equal to
+    :func:`fused_calibrate_stretch_plain`.
+
+    Gains and biases on the host (the configuration's values) go to the
+    kernel by value, with no copy to the card; tensors on the card are
+    read there. One launch a call."""
     x = _dn_planes(bands)
-    g = _per_band(gains, x)
-    b = _per_band(biases, x)
     if x.device.type == "cpu":
-        return fused_calibrate_stretch_plain(x, g, b)
+        return fused_calibrate_stretch_plain(x, gains, biases)
     x = x.contiguous()
-    _require_cuda(x, g, b)
+    _require_cuda(x)
+    vals = (_band_values(gains, x), _band_values(biases, x))
+    _require_cuda(x, *(v for v in vals if isinstance(v, torch.Tensor)))
+    host = [v.ctypes.data if isinstance(v, np.ndarray) else None
+            for v in vals]
+    card = [v.data_ptr() if isinstance(v, torch.Tensor) else None
+            for v in vals]
     c, h, w = x.shape
-    # the DN extremes, outside the kernel as in the TPU version; uint16
-    # has no aminmax, and int32 holds it exactly
-    flat = x.reshape(c, h * w)
-    lo, hi = torch.aminmax(flat.to(torch.int32) if x.dtype == torch.uint16
-                           else flat, dim=1)
-    ends = torch.stack([lo, hi]).to(torch.float32) * g + b
-    mn, mx = torch.aminmax(ends, dim=0)
+    span, instance = calibrate_stretch_plan(h * w, x.element_size())
     out = torch.empty((c, h, w), dtype=torch.float32, device=x.device)
     _call("stretch_indices", "calibrate_stretch_launch",
           [_P, ctypes.c_int, _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong,
-           _P, _P],
-          x.data_ptr(), _DN_CODES[x.dtype], g.data_ptr(), b.data_ptr(),
-          mn.data_ptr(), mx.data_ptr(), c, h * w, out.data_ptr(),
-          _stream(x.device))
+           ctypes.c_longlong, ctypes.c_int, _P, _P],
+          x.data_ptr(), _DN_CODES[x.dtype], *host, *card, c, h * w, span,
+          int(instance == "staged"), out.data_ptr(), _stream(x.device))
     fused_calibrate_stretch.launches += 1
     return out
 

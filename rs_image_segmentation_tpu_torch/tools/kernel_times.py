@@ -23,7 +23,19 @@ scenes of 7 x 600 x 600 from seed 0):
 * ``glcm_grid`` over stage 2's texture band of scene 0 (levels 32, window
   = step = 21, four offsets), the batch's 8 texture bands, a flat band
   (every pair on one cell) and a band of uniform random levels (pairs
-  spread over the cells).
+  spread over the cells);
+* ``lut_hist`` with ``sp``: the batch with ``skip_hist`` and f32 out (the
+  supervised path's preamble), the batch with its histogram, scene 0 with
+  its histogram (the single-scene rule path), and the batch with
+  ``skip_hist`` and uint8 out;
+* ``fused_calibrate_stretch`` on scene 0 as 16-bit DNs and as float DNs
+  (``stage1_dns``), with gains and biases passed as host values (as
+  ``preprocess_bands_f32`` passes the configuration's) and as tensors on
+  the card.
+
+``lut_hist`` and ``fused_calibrate_stretch`` also report the kernels one
+call launches and whether its trace holds a host-to-device copy; the
+stretch on host gains also stage 1's route around it (``stage1_wall_ms``).
 
 ``--root DIR`` imports the port's package from the checkout at ``DIR``
 (for example an unpacked parent commit), so that two versions of the
@@ -32,13 +44,13 @@ kernels can be timed by one script on one card:
     python3 rs_image_segmentation_tpu_torch/tools/kernel_times.py \\
         [--root DIR] [--kernels hist_dense,glcm_grid] [--out FILE.json]
 
-``--kernels`` picks the kernels to time (default: all five).
+``--kernels`` picks the kernels to time (default: all seven).
 
 The timing helpers (``l2_flusher``, ``cold_ms``, ``trace_ms``,
 ``kernel_device_ms``, ``kernel_numbers``) and the fixtures
 (``large_forest``, ``reflected_tiling``, ``spied_calls``,
-``graph_cc_masks``, ``rule_hist_ids``, ``stage2_glcm_bands``) are also used
-by ``chip_smoke.py``. They need a card
+``graph_cc_masks``, ``rule_hist_ids``, ``stage2_glcm_bands``, ``dn16``,
+``stage1_dns``) are also used by ``chip_smoke.py``. They need a card
 and raise without one.
 """
 
@@ -60,8 +72,9 @@ L2_FLUSH_BYTES = 256 << 20     # over five times the H100's 50 MB L2
 LARGE_FOREST_SAMPLES = 2000
 BATCH, SIZE, LARGE, SEED = 8, 600, 6000, 0
 BINS = 32768                   # the batched rule path's component-id cap
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 KERNELS = ("forest_labels", "ccmin_prop", "cc_labels", "hist_dense",
-           "glcm_grid")
+           "glcm_grid", "lut_hist", "fused_calibrate_stretch")
 
 
 def _need_card() -> None:
@@ -144,13 +157,32 @@ def kernel_device_ms(fn, kernel: str, flush, reps: int = 20):
 
 
 def launched_kernels(fn, reps: int = 3) -> list:
-    """The names of the CUDA kernels a call of ``fn`` launches, memsets and
-    fills included, from a torch.profiler trace of ``reps`` calls (a trace
-    of one call can miss its first launch)."""
+    """The names of the CUDA kernels a call of ``fn`` launches, memsets,
+    fills and copies included, from a torch.profiler trace of ``reps``
+    calls (a trace of one call can miss its first launch), each after a
+    spin of the card (left out of the names); traced again with twice the
+    calls, up to three times, while the trace is empty."""
     _need_card()
     fn()
     torch.cuda.synchronize()
-    return sorted(short_name(k) for k in _trace(fn, reps))
+
+    def spun():             # a trace of a few short calls has come back
+        torch.cuda._sleep(1_000_000)    # empty; the spin lengthens it, as
+        fn()                            # the flush does in trace_ms
+    for tries in range(4):
+        names = sorted(short_name(k) for k in _trace(spun, reps << tries)
+                       if "spin_kernel" not in k)
+        if names:
+            break
+    return names
+
+
+def launch_numbers(fn) -> dict:
+    """The kernels one call of ``fn`` launches (:func:`launched_kernels`)
+    and whether the trace shows a host-to-device copy."""
+    names = launched_kernels(fn)
+    return {"kernels_a_call_launches": names,
+            "htod_memcpy": any("HtoD" in k for k in names)}
 
 
 def short_name(kernel: str) -> str:
@@ -260,6 +292,37 @@ def batch_glcm_bands(scenes_d, luts_d, cfg):
     bands01 = features.normalize_bands(stretched, cfg)
     tex01 = robust_normalize(bands01[:, cfg.texture_band_index])
     return (tex01 * (cfg.glcm.levels - 1)).to(torch.uint8).to(torch.int32)
+
+
+def stage1_wall_ms(x, gains, biases, reps: int = 20) -> float:
+    """Median host-clock ms of stage 1's f32 route on DNs ``x`` already on
+    the card (``preprocess_bands`` with host gains, into uint8), each call
+    ended by a synchronize."""
+    from rs_image_segmentation_tpu_torch.pipeline.preprocess import (
+        preprocess_bands)
+    ts = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preprocess_bands(x, gains, biases, device=x.device)
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts[1:])
+
+
+def dn16(scene: np.ndarray) -> np.ndarray:
+    """A 16-bit scene from a uint8 one: DN * 257 plus seeded noise in
+    [0, 257)."""
+    noise = np.random.default_rng(SEED + 32).integers(0, 257, scene.shape)
+    return scene.astype(np.uint16) * 257 + noise.astype(np.uint16)
+
+
+def stage1_dns(scene: np.ndarray) -> dict:
+    """Stage 1's f32-route inputs from a uint8 scene: 16-bit DNs
+    (:func:`dn16`) and float DNs (DN * 1.37 plus seeded noise in [0, 1))."""
+    return {"uint16": dn16(scene),
+            "f32": scene.astype(np.float32) * 1.37 + np.random.default_rng(
+                SEED + 33).random(scene.shape, dtype=np.float32)}
 
 
 def reflected_tiling(scene: np.ndarray, size: int) -> np.ndarray:
@@ -400,6 +463,49 @@ def measure(dev, which=KERNELS) -> dict:
             res["shape"] = list(q.shape)
             out[f"glcm_grid, {key}, levels {g.levels}, window "
                 f"{g.window_size}"] = res
+
+    if "lut_hist" in which:
+        planes, n = BATCH * scenes.shape[1], SIZE * SIZE
+        for key, args, kw, n_planes in (
+                ("skip_hist, f32 out, the batch", (scenes_d, luts_d),
+                 dict(sp=params_d, skip_hist=True), planes),
+                ("histogram, f32 out, the batch", (scenes_d, luts_d),
+                 dict(sp=params_d), planes),
+                ("histogram, f32 out, scene 0", (scenes_d[0], luts_d[0]),
+                 dict(sp=params_d[0]), planes // BATCH),
+                ("skip_hist, uint8 out, the batch", (scenes_d, luts_d),
+                 dict(sp=params_d, skip_hist=True, out_u8=True), planes)):
+            res = kernel_numbers(lambda: kernels.lut_hist(*args, **kw), flush)
+            res.update(launch_numbers(lambda: kernels.lut_hist(*args, **kw)))
+            # each input byte read once, each output byte written once
+            nbytes = n_planes * (n * (1 + (1 if kw.get("out_u8") else 4))
+                                 + 256 + (0 if kw.get("skip_hist")
+                                          else 256 * 4))
+            res["bytes"] = nbytes
+            res["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+            shape = tuple(args[0].shape)
+            out[f"lut_hist, {key}, {' x '.join(map(str, shape))}"] = res
+
+    if "fused_calibrate_stretch" in which:
+        cal = CalibrationConfig()
+        gains, biases = np.asarray(cal.gains), np.asarray(cal.biases)
+        gains_d = torch.from_numpy(gains.astype(np.float32)).to(dev)
+        biases_d = torch.from_numpy(biases.astype(np.float32)).to(dev)
+        for dtype, dn in stage1_dns(scenes[0]).items():
+            x = torch.from_numpy(dn).to(dev)
+            for how, g, b in (("host gains", gains, biases),
+                              ("gains on the card", gains_d, biases_d)):
+                def call(x=x, g=g, b=b):
+                    return kernels.fused_calibrate_stretch(x, g, b)
+                res = kernel_numbers(call, flush)
+                res.update(launch_numbers(call))
+                if how == "host gains":
+                    res["stage1_wall_ms"] = stage1_wall_ms(x, gains, biases)
+                nbytes = x.numel() * (x.element_size() + 4)
+                res["bytes"] = nbytes
+                res["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+                out[f"fused_calibrate_stretch, {dtype} DNs, {how}, "
+                    f"{' x '.join(map(str, dn.shape))}"] = res
     return out
 
 
@@ -435,9 +541,14 @@ def main(argv=None) -> int:
     for key, r in numbers.items():
         passes = "; ".join(f"{k} {v:.4f}" for k, v in r["passes"].items())
         launched = r.get("kernels_a_call_launches")
+        wall = r.get("stage1_wall_ms")
         print(f"{key}: back to back {r['ms']:.4f} ms, cold L2 "
               f"{r['cold_ms']:.4f} ms, alone {r['alone_ms']} ms ({passes})"
-              + (f"; a call launches {launched}" if launched else ""))
+              + (f"; a call launches {launched}" if launched else "")
+              + (f"; host-to-device copy {r['htod_memcpy']}"
+                 if "htod_memcpy" in r else "")
+              + (f"; stage 1's 16-bit route {wall:.4f} ms wall" if wall
+                 else ""))
     print(smi)
     print(json.dumps(result))
     if args.out:

@@ -145,3 +145,140 @@ def test_forest_of_20_classes_matches_jax():
     ref = np.asarray(jturbo.gemm_labels_cm(jgf, jnp.asarray(pix)))
     np.testing.assert_array_equal(got, ref)
     assert len(np.unique(got)) > 16
+
+
+# ------------------------------------ the calibrate-stretch kernel's partition
+
+def _lo_of(a, b):
+    """NaN-propagating min, as the kernel's ``lo_of`` (and torch.aminmax)."""
+    return a if (a < b or a != a) else b
+
+
+def _hi_of(a, b):
+    return a if (a > b or a != a) else b
+
+
+def _rendered_calibrate_stretch(dn, gains, biases):
+    """numpy rendering of ``calibrate_stretch_kernel``: per band, the
+    ``STRETCH_CLUSTER`` blocks of ``calibrate_stretch_plan`` each reduce
+    the DN extremes of their slice (empty slices give the identities), the
+    cluster folds the blocks' extremes, the ends are ``gain * d + bias`` in
+    f32 and the stretch ``(cal - mn) * 255 / (mx - mn)``. Returns the f32
+    output and each band's per-block extremes."""
+    c, h, w = dn.shape
+    hw = h * w
+    span, _ = kernels.calibrate_stretch_plan(hw, dn.dtype.itemsize)
+    is_f = dn.dtype == np.float32
+    ident = (np.float32(np.inf), np.float32(-np.inf)) if is_f else (
+        np.iinfo(np.int32).max, np.iinfo(np.int32).min)
+    g = np.asarray(gains, np.float32)
+    b = np.asarray(biases, np.float32)
+    out = np.empty((c, hw), np.float32)
+    blocks = []
+    for band in range(c):
+        flat = dn[band].reshape(-1)
+        ext = []
+        for r in range(kernels.STRETCH_CLUSTER):
+            lo, hi = ident
+            for v in flat[r * span:(r + 1) * span]:
+                v = v if is_f else int(v)
+                lo, hi = _lo_of(lo, v), _hi_of(hi, v)
+            ext.append((lo, hi))
+        dlo, dhi = ident
+        for lo, hi in ext:
+            dlo, dhi = _lo_of(dlo, lo), _hi_of(dhi, hi)
+        with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
+            e0 = np.float32(dlo) * g[band] + b[band]
+            e1 = np.float32(dhi) * g[band] + b[band]
+            mn, mx = _lo_of(e0, e1), _hi_of(e0, e1)
+            cal = flat.astype(np.float32) * g[band] + b[band]
+            out[band] = (cal - mn) * np.float32(255.0) / (mx - mn)
+        blocks.append(ext)
+    return out.reshape(c, h, w), blocks
+
+
+def _stretch_case(name):
+    rng = np.random.default_rng(len(name))
+    if name == "uint16, 601 x 599 cut to 13 x 37":     # a ragged last slice
+        return _dn_scenes()["uint16"][:, :13, :37].copy()
+    if name == "f32 with a NaN":
+        dn = _dn_scenes()["float32"][:, :20, :30].copy()
+        dn[3, 7, 11] = np.nan
+        return dn
+    if name == "uint16, a flat band":
+        dn = _dn_scenes()["uint16"][:, :9, :41].copy()
+        dn[2] = 777
+        return dn
+    if name == "uint8, 5 x 5":                   # most blocks empty
+        return rng.integers(0, 256, (7, 5, 5), dtype=np.uint8)
+    return rng.random((7, 16, 16), dtype=np.float32) * 1e4   # f32, 16 x 16
+
+
+@pytest.mark.parametrize("negative_gain", [False, True],
+                         ids=["gains", "negative_gains"])
+@pytest.mark.parametrize("name", ["uint16, 601 x 599 cut to 13 x 37",
+                                  "f32 with a NaN", "uint16, a flat band",
+                                  "uint8, 5 x 5", "f32, 16 x 16"])
+def test_calibrate_stretch_rendering_matches_plain(name, negative_gain):
+    dn = _stretch_case(name)
+    gains = GAINS * (np.where(np.arange(7) % 2 == 1, -1, 1).astype(
+        np.float32) if negative_gain else 1)
+    got, blocks = _rendered_calibrate_stretch(dn, gains, BIASES)
+    ref = kernels.fused_calibrate_stretch_plain(torch.from_numpy(dn), gains,
+                                                BIASES).numpy()
+    np.testing.assert_array_equal(got, ref)
+    span, instance = kernels.calibrate_stretch_plan(
+        dn.shape[1] * dn.shape[2], dn.dtype.itemsize)
+    assert instance == "staged" and span % 4 == 0
+    if name == "f32 with a NaN":    # one block's extremes are NaN: the band
+        assert sum(np.isnan(lo) for lo, _ in blocks[3]) == 1
+        assert np.isnan(ref[3]).all() and np.isfinite(ref[2]).all()
+    if name == "uint16, a flat band":
+        assert np.isnan(ref[2]).all()
+
+
+def test_calibrate_stretch_plan_by_shape():
+    assert kernels.calibrate_stretch_plan(360000, 2) == (22500, "staged")
+    assert kernels.calibrate_stretch_plan(360000, 4) == (22500, "staged")
+    assert kernels.calibrate_stretch_plan(601 * 599, 2) == (22500, "staged")
+    assert kernels.calibrate_stretch_plan(6000 * 6000, 2) == (
+        2250000, "streamed")
+    # past STRETCH_STAGE_BYTES a block: 1000 x 1000 f32 is 250 KB a block
+    assert kernels.calibrate_stretch_plan(10 ** 6, 4)[1] == "streamed"
+    assert kernels.calibrate_stretch_plan(10 ** 6, 1)[1] == "staged"
+
+
+@pytest.mark.parametrize("how", ["list", "tuple", "f64 array", "f32 array",
+                                 "f64 CPU tensor"])
+def test_calibrate_stretch_wrapper_takes_host_gains_alike(how):
+    """Gains and biases as host sequences, arrays or CPU tensors give the
+    same output; the wrapper turns each into the f32 values the kernel
+    takes by value."""
+    dn = torch.from_numpy(_dn_scenes()["uint16"])
+    g64, b64 = np.asarray(CAL.gains), np.asarray(CAL.biases)
+    conv = {"list": list, "tuple": tuple, "f64 array": np.asarray,
+            "f32 array": lambda v: np.asarray(v, np.float32),
+            "f64 CPU tensor": torch.tensor}[how]
+    got = kernels.fused_calibrate_stretch(dn, conv(g64), conv(b64))
+    ref = kernels.fused_calibrate_stretch_plain(dn, GAINS, BIASES)
+    assert torch.equal(got, ref)
+    host = kernels._band_values(conv(g64), dn)
+    assert isinstance(host, np.ndarray) and host.dtype == np.float32
+    np.testing.assert_array_equal(host, GAINS)
+
+
+def test_calibrate_stretch_band_values_on_the_card_and_the_cap():
+    """Tensors on another device than the CPU stay there (read by the
+    kernel); host values past STRETCH_MAX_HOST_BANDS raise."""
+    x = torch.zeros((7, 4, 4), device="meta")
+    dev = kernels._band_values(torch.zeros(7, dtype=torch.float64,
+                                           device="meta"), x)
+    assert dev.device.type == "meta" and dev.dtype == torch.float32
+    with pytest.raises(ValueError, match="one gain and bias per band"):
+        kernels._band_values([1.0] * 6, x)
+    many = kernels.STRETCH_MAX_HOST_BANDS + 1
+    with pytest.raises(ValueError, match="on the card"):
+        kernels._band_values([1.0] * many, torch.zeros((many, 2, 2)))
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        kernels.fused_calibrate_stretch(torch.zeros(
+            (7, 4, 4), dtype=torch.uint16, device="meta"), GAINS, BIASES)

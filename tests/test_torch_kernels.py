@@ -614,3 +614,208 @@ def test_rule_kernel_wrappers_on_cpu_tensors_do_not_launch():
     assert int(outs[2].sum()) == 0
     assert (kernels.ccmin_prop.launches, kernels.hist_dense.launches,
             kernels.keep_lut.launches) == before
+
+
+# ------------------------------------------------------------ lut_hist
+
+def _count_word(bins, a, b, c, d):
+    """``count_word`` of ``csrc/lut_hist.cu``: one add per distinct value
+    of a word, with its repeats; returns the number of adds."""
+    bins[a] += 1 + (b == a) + (c == a) + (d == a)
+    adds = 1
+    if b != a:
+        bins[b] += 1 + (c == b) + (d == b)
+        adds += 1
+    if c != a and c != b:
+        bins[c] += 1 + (d == c)
+        adds += 1
+    if d != a and d != b and d != c:
+        bins[d] += 1
+        adds += 1
+    return adds
+
+
+def _rendered_lut_hist(scene, lut, unit, blocks, threads, unroll):
+    """numpy rendering of the ranges instance of ``csrc/lut_hist.cu``
+    (``lut_hist_kernel``) on a (planes, n) uint8 scene with (planes, 256)
+    tables: the blocks of ``lut_hist_plan`` each take their range of
+    units; per plane they run the units wholly inside it,
+    thread ``t`` taking units ``base + u * threads`` of each step, its
+    lookups counted into its warp's bins with equal values of a 4-pixel
+    word merged, then flush the warps' sums into the histogram; the unit
+    that straddles a plane boundary is done byte by byte, straight into the
+    histogram. Returns the levels, the histogram and the shared adds."""
+    planes, n = scene.shape
+    flat = scene.reshape(-1)
+    total = planes * n
+    grid, span = kernels.lut_hist_plan(planes, n, unit, blocks)
+    units = -(-total // unit)
+    out = np.full(total, -1, np.int64)
+    hist = np.zeros((planes, 256), np.int64)
+    adds = 0
+    for k in range(grid):
+        lo, hi = k * span, min(k * span + span, units)
+        p0 = lo * unit // n
+        p1 = (min(hi * unit, total) - 1) // n
+        assert p1 - p0 + 1 <= kernels.LUT_MAX_TABLES
+        bins = np.zeros((-(-threads // 32), 256), np.int64)
+        for p in range(p0, p1 + 1):
+            ws = max(lo, -(-(p * n) // unit))
+            we = min(hi, (p + 1) * n // unit)
+            for t in range(threads):
+                for base in range(ws + t, we, threads * unroll):
+                    for u in range(unroll):
+                        i = base + u * threads
+                        if i >= we:
+                            continue
+                        levels = lut[p][flat[i * unit:(i + 1) * unit]]
+                        out[i * unit:(i + 1) * unit] = levels
+                        if unit == 1:
+                            bins[t // 32, levels[0]] += 1
+                            adds += 1
+                        for q in range(0, unit if unit > 1 else 0, 4):
+                            adds += _count_word(bins[t // 32],
+                                                *levels[q:q + 4])
+            hist[p] += bins.sum(axis=0)
+            bins[:] = 0
+        for p in range(p0 + 1, p1 + 2):
+            b = p * n
+            w = b // unit
+            if b % unit == 0 or not lo <= w < hi:
+                continue
+            for j in range(w * unit, min(w * unit + unit, total)):
+                q = p - 1 if j < b else p
+                out[j] = lut[q][flat[j]]
+                hist[q, out[j]] += 1
+    return out.reshape(planes, n), hist, adds
+
+
+def _lut_hist_case(planes, n, smooth, seed):
+    rng = np.random.default_rng(seed)
+    if smooth:      # runs of one DN, as smooth scenes have
+        runs = rng.integers(1, 30, planes * n)
+        dn = np.repeat(rng.integers(0, 256, planes * n), runs)
+        scene = dn[:planes * n].reshape(planes, n).astype(np.uint8)
+    else:
+        scene = rng.integers(0, 256, (planes, n), dtype=np.uint8)
+    lut = rng.integers(0, 256, (planes, 256), dtype=np.uint8)
+    return scene, lut
+
+
+@pytest.mark.parametrize("planes,n,unit,blocks,threads,unroll,smooth", [
+    (3, 91, 4, 5, 8, 2, False),        # n % 4 == 3: straddling words
+    (3, 91, 4, 5, 8, 2, True),
+    (1, 1001, 4, 3, 32, 4, True),      # one plane, one row
+    (7, 3599, 4, 40, kernels.LUT_THREADS, kernels.LUT_UNROLL, True),
+    (40, 15, 4, 2, 4, 3, False),       # many planes a block
+    (3, 63, 16, 4, 4, 2, True),        # uint8 out: 16-pixel units
+    (5, 3, 1, 4, 4, 2, False),         # planes shorter than a word
+])
+def test_lut_hist_rendering_matches_plain(planes, n, unit, blocks, threads,
+                                          unroll, smooth):
+    scene, lut = _lut_hist_case(planes, n, smooth, planes * n)
+    got, hist, adds = _rendered_lut_hist(scene, lut, unit, blocks, threads,
+                                         unroll)
+    st, ref_hist = kernels.lut_hist_plain(
+        torch.from_numpy(scene[:, None]), torch.from_numpy(lut), out_u8=True)
+    np.testing.assert_array_equal(got, st[:, 0].numpy())
+    np.testing.assert_array_equal(hist, ref_hist.numpy())
+    np.testing.assert_array_equal(hist, kernels.histogram256(
+        torch.from_numpy(got.astype(np.uint8)[:, None])).numpy())
+    if smooth and unit > 1:
+        assert adds < planes * n * 0.6      # equal values merged
+
+
+def _rendered_lut_hist_cluster(scene, lut, unit, threads, unroll):
+    """numpy rendering of ``lut_hist_cluster_kernel`` on a (planes, n)
+    scene with ``n % unit == 0``: per plane, ``LUT_CLUSTER`` blocks each
+    take ``span`` units of the plane, thread ``t`` units ``base + u *
+    threads`` of each step, counted into its warp's bins with equal values
+    of a word merged; each block sums its warps, and the owner of each bin
+    (block ``bin // (256 // LUT_CLUSTER)``) writes the cluster's sum once.
+    Returns the levels, the histogram and the owners' writes per bin."""
+    planes, n = scene.shape
+    per = n // unit
+    span = -(-per // kernels.LUT_CLUSTER)
+    out = np.full((planes, n), -1, np.int64)
+    hist = np.full((planes, 256), -7, np.int64)     # uninitialised
+    writes = np.zeros((planes, 256), np.int64)
+    for p in range(planes):
+        sums = np.zeros((kernels.LUT_CLUSTER, 256), np.int64)
+        for r in range(kernels.LUT_CLUSTER):
+            lo, hi = r * span, min(r * span + span, per)
+            bins = np.zeros((-(-threads // 32), 256), np.int64)
+            for t in range(threads):
+                for base in range(lo + t, hi, threads * unroll):
+                    for u in range(unroll):
+                        i = base + u * threads
+                        if i >= hi:
+                            continue
+                        levels = lut[p][scene[p, i * unit:(i + 1) * unit]]
+                        out[p, i * unit:(i + 1) * unit] = levels
+                        for q in range(0, unit, 4):
+                            _count_word(bins[t // 32], *levels[q:q + 4])
+            sums[r] = bins.sum(axis=0)
+        per_rank = 256 // kernels.LUT_CLUSTER
+        for r in range(kernels.LUT_CLUSTER):
+            owned = slice(r * per_rank, (r + 1) * per_rank)
+            hist[p, owned] = sums[:, owned].sum(axis=0)
+            writes[p, owned] += 1
+    return out, hist, writes
+
+
+@pytest.mark.parametrize("planes,n,unit,threads,unroll,smooth", [
+    (3, 92, 4, 8, 2, False),       # 23 words: two a block, the last one
+    (2, 1000, 4, 8, 3, True),
+    (7, 3600, 4, kernels.LUT_THREADS, kernels.LUT_UNROLL, True),
+    (2, 48, 16, 4, 2, True),       # uint8 out: three units a plane
+    (1, 16 * 40, 16, 2, 2, False),
+])
+def test_lut_hist_cluster_rendering_matches_plain(planes, n, unit, threads,
+                                                  unroll, smooth):
+    scene, lut = _lut_hist_case(planes, n, smooth, planes * n + 1)
+    got, hist, writes = _rendered_lut_hist_cluster(scene, lut, unit,
+                                                   threads, unroll)
+    st, ref_hist = kernels.lut_hist_plain(
+        torch.from_numpy(scene[:, None]), torch.from_numpy(lut), out_u8=True)
+    np.testing.assert_array_equal(got, st[:, 0].numpy())
+    np.testing.assert_array_equal(hist, ref_hist.numpy())
+    assert (writes == 1).all()              # every bin written once
+    assert kernels.lut_hist_instance(planes, n, unit, False) == "cluster"
+
+
+def test_lut_hist_rendering_merges_a_flat_word():
+    """A scene of one level takes one shared add a word."""
+    scene = np.full((2, 400), 7, np.uint8)
+    lut = np.tile(np.arange(256, dtype=np.uint8)[::-1], (2, 1))
+    _, hist, adds = _rendered_lut_hist(scene, lut, 4, 3, 32, 2)
+    assert adds == 2 * 400 // 4
+    assert hist[:, 248].tolist() == [400, 400] and int(hist.sum()) == 800
+
+
+def test_lut_hist_unit_and_plan():
+    scene = torch.zeros((7, 600, 600), dtype=torch.uint8)
+    f32 = torch.empty((7, 600, 600))
+    u8 = torch.empty((7, 600, 600), dtype=torch.uint8)
+    assert kernels.lut_hist_unit(scene, f32) == 4
+    assert kernels.lut_hist_unit(scene, u8) == 16
+    buf = torch.zeros(7 * 360000 + 16, dtype=torch.uint8)
+    for off, want_f32, want_u8 in ((1, 1, 1), (4, 4, 4), (16, 4, 16)):
+        view = buf[off:off + 7 * 360000].view(7, 600, 600)
+        assert kernels.lut_hist_unit(view, f32) == want_f32, off
+        assert kernels.lut_hist_unit(view, u8) == want_u8, off
+    tiny = torch.zeros((5, 1, 3), dtype=torch.uint8)
+    assert kernels.lut_hist_unit(tiny, torch.empty((5, 1, 3))) == 1
+    # the main path's batch on 132 SMs: 528 ranges of 9 546 words
+    assert kernels.lut_hist_plan(56, 360000, 4, 528) == (528, 9546)
+    # ranges capped at LUT_MAX_TABLES planes
+    grid, span = kernels.lut_hist_plan(65535, 4, 4, 528)
+    assert span == kernels.LUT_MAX_TABLES - 1 and grid == -(-65535 // span)
+    # the histogram takes the cluster instance where planes split into
+    # whole units; the ranges instance (and its zero fill) otherwise
+    assert kernels.lut_hist_instance(56, 360000, 4, False) == "cluster"
+    assert kernels.lut_hist_instance(7, 360000, 16, False) == "cluster"
+    assert kernels.lut_hist_instance(56, 360000, 4, True) == "ranges"
+    assert kernels.lut_hist_instance(7, 601 * 599, 4, False) == "ranges"
+    assert kernels.lut_hist_instance(7, 360000, 1, False) == "ranges"
+    assert kernels.lut_hist_instance(65536, 16, 4, False) == "ranges"
