@@ -1,10 +1,11 @@
 """GPU smoke run of the PyTorch port's paths on one CUDA card: the
-supervised turbo classifier (19 channels, a 100-tree forest) and the
-batched rule program on an 8-scene 7 x 600 x 600 batch; the single-scene
-rule program with its uncapped large-scene route on one 7 x 600 x 600
-scene, a noise scene and one 7 x 6000 x 6000 scene; and stage 1
-(preprocess, uint8 and 16-bit DNs) into stage 2 (the feature graph, full
-width) on one 7 x 600 x 600 scene.
+supervised turbo classifier (19 channels, a 100-tree forest), the batched
+rule program and the KMeans batch program (k = 7) on an 8-scene
+7 x 600 x 600 batch; the single-scene rule program with its uncapped
+large-scene route on one 7 x 600 x 600 scene, a noise scene and one
+7 x 6000 x 6000 scene; stage 1 (preprocess, uint8 and 16-bit DNs) into
+stage 2 (the feature graph, full width) on one 7 x 600 x 600 scene; and
+forest predict and stage 4's metrics.
 
 Phases, in order; any failed check raises and the script exits non-zero:
   1. the card (nvidia-smi name and power limit); build every CUDA kernel
@@ -85,7 +86,22 @@ Phases, in order; any failed check raises and the script exits non-zero:
      before it (the stretch with host gains, as stage 1 passes them, and
      with gains on the card); the kernels a stretch call launches (its
      kernel alone, no host-to-device copy); what the two fused kernels
-     would save inside the supervised stack (printed, not routed); then the
+     would save inside the supervised stack (printed, not routed);
+ 16. the KMeans batch program, ``kmeans_scenes_turbo_batch`` (fit stride
+     8), in three runs: per-scene fits, a shared fit, and a warm start
+     that feeds the shared fit's centroids back as ``init_cents``; each
+     with launch counts read around one call (``lut_hist`` once, nothing
+     else), timed (median of 5 after a warm-up), split into stack, fit
+     and assignment by CUDA events, with each fit's Lloyd iterations; the
+     same run on the CPU (the CPU's assignment to the card's centroids
+     >= 99.9 % equal to the card's maps, the card's mapped kappa against
+     the rule maps within 0.05 of the CPU's); stage 4's metrics of two
+     scenes on the card equal to the CPU's;
+ 17. forest predict, ``forest_classify`` on scene 0's (600, 600, 19)
+     features with the path's forest, launch counts read around one call
+     (``forest_labels`` once, nothing else), timed, against the CPU's
+     plain route and the supervised path's scene 0 (>= 99.9 %), and
+     ``evaluate_classification`` on the card equal to the CPU's; then the
      card's line, the kernels' JSON line and the result line.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs no
@@ -1320,6 +1336,211 @@ def stage_phases(dev, cfg, scenes, luts, scenes_d, luts_d) -> list:
     return rows
 
 
+KMEANS_K = 7
+KMEANS_SEED = 42
+KMEANS_STRIDE = 8
+# the card's mapped kappa may differ from its CPU run's by at most this
+# much on a scene. Both runs draw the same CPU Gumbel noise, so only the
+# near-tied pixels that f32 matmuls split differently part them: 0.0004 at
+# most over the three runs' 24 scenes on an H100 (phase 16), five times that
+CARD_CPU_KAPPA_MARGIN = 0.002
+
+
+def mapped_kappa(ev, maps, truth) -> float:
+    """Cohen's kappa of cluster maps against a class map, each cluster
+    mapped to its majority class (stage 4's evaluator on ``ev``'s
+    device)."""
+    pred, true = ev.extract_valid_samples(maps, truth)
+    return ev.calculate_metrics(true, ev.map_clusters_to_classes(pred, true)
+                                )["kappa"]
+
+
+def kmeans_phases(dev, cfg, scenes, luts, params, hists, scenes_d, luts_d,
+                  params_d, hists_d) -> dict:
+    """Phase 16: the KMeans batch program, ``kmeans_scenes_turbo_batch``,
+    in three runs (per-scene fits, a shared fit, and a warm start from the
+    shared fit's centroids), each with launch counts read around one call,
+    timed (median of 5 after a warm-up), split into stack, fit and
+    assignment with CUDA events, and checked against the same run on the
+    CPU; stage 4's metrics on the card against the CPU's. Returns the
+    launches of each run."""
+    from rs_image_segmentation_tpu_torch.pipeline import turbo
+    from rs_image_segmentation_tpu_torch.pipeline.evaluate import (
+        ClassificationEvaluator)
+    from rs_image_segmentation_tpu_torch.utils.timing import cuda_time_ms
+
+    t0 = time.perf_counter()
+    sc, lt, sp, hh = turbo._batch_inputs(scenes, luts, params, hists, "cpu")
+    xs_cpu = turbo.kmeans_features(sc, lt, cfg, sp, hh)
+    cpu_stack_s = time.perf_counter() - t0
+    rule_d = turbo.rule_based_scenes_turbo_batch(
+        scenes_d, luts_d, cfg, stretch_params=params_d,
+        stretch_hists=hists_d, device=dev)
+    rule_cpu = rule_d.cpu()
+    ev_d = ClassificationEvaluator(device=dev)
+    ev_cpu = ClassificationEvaluator(device="cpu")
+    runs = {"per-scene fits": {}, "shared fit": {"shared_fit": True},
+            "warm start": {"shared_fit": True}}
+    launches_by_run = {}
+    for label, kw in runs.items():
+        if label == "warm start":
+            kw = dict(kw, init_cents=shared_cents)
+
+        def run():
+            return turbo.kmeans_scenes_turbo_batch(
+                scenes_d, luts_d, KMEANS_K, cfg, KMEANS_SEED, KMEANS_STRIDE,
+                stretch_params=params_d, stretch_hists=hists_d,
+                return_cents=True, device=dev, **kw)
+
+        (maps, cents), launches = counted(run)
+        launches_by_run[label] = launches
+        check(launches["lut_hist"] == 1
+              and all(n == 0 for k, n in launches.items()
+                      if k != "lut_hist"),
+              f"KMeans [{label}]: one lut_hist launch and no other kernel: "
+              f"{launches}")
+        shared = "shared_fit" in kw
+        check(maps.shape == (BATCH, HEIGHT, WIDTH)
+              and maps.dtype == torch.uint8
+              and int(maps.min()) >= 1 and int(maps.max()) <= KMEANS_K,
+              f"KMeans [{label}] maps (B, H, W) uint8 in 1..{KMEANS_K}")
+        check(tuple(cents.shape) == ((KMEANS_K, 19) if shared
+                                     else (BATCH, KMEANS_K, 19))
+              and bool(torch.isfinite(cents).all()),
+              f"KMeans [{label}] centroids finite, {tuple(cents.shape)}")
+        if label == "shared fit":
+            shared_cents = cents
+        walls = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3)
+        batch_ms = statistics.median(walls[1:])
+        # the split, with CUDA events; the fit syncs once an iteration
+        xs_d = turbo.kmeans_features(scenes_d, luts_d, cfg, params_d,
+                                     hists_d)
+        fit_args = (KMEANS_K, KMEANS_SEED, KMEANS_STRIDE, shared,
+                    kw.get("init_cents"))
+        cents_b, _, n_iter = turbo.kmeans_fit(xs_d, *fit_args)
+        stack_ms = cuda_time_ms(lambda: turbo.kmeans_features(
+            scenes_d, luts_d, cfg, params_d, hists_d), 3, 1)
+        fit_ms = cuda_time_ms(lambda: turbo.kmeans_fit(xs_d, *fit_args), 3, 1)
+        assign_ms = cuda_time_ms(lambda: turbo.assign_clusters(xs_d, cents_b),
+                                 5, 1)
+        print(f"KMeans [{label}]: launches {launches}; median {batch_ms:.3f}"
+              f" ms per batch, {batch_ms / BATCH:.3f} ms per scene (runs "
+              f"{[round(w, 3) for w in walls]}); by events stack "
+              f"{stack_ms:.4f}, fit {fit_ms:.4f}, assignment "
+              f"{assign_ms:.4f} ms; Lloyd iterations "
+              f"{n_iter.tolist()}", flush=True)
+
+        # the card against its CPU run
+        init = kw.get("init_cents")
+        t1 = time.perf_counter()
+        cents_cpu, _, n_iter_cpu = turbo.kmeans_fit(
+            xs_cpu, KMEANS_K, KMEANS_SEED, KMEANS_STRIDE, shared,
+            None if init is None else init.cpu())
+        maps_cpu = (turbo.assign_clusters(xs_cpu, cents_cpu).reshape(
+            BATCH, HEIGHT, WIDTH) + 1).to(torch.uint8)
+        same_cents = (turbo.assign_clusters(
+            xs_cpu, cents.cpu().expand(BATCH, KMEANS_K, 19)).reshape(
+            BATCH, HEIGHT, WIDTH) + 1).to(torch.uint8)
+        agree = float((same_cents == maps.cpu()).double().mean())
+        check(agree >= 0.999, f"KMeans [{label}]: the CPU's assignment to "
+              f"the card's centroids agrees with the card on {agree}")
+        kappas = [(mapped_kappa(ev_d, maps[b], rule_d[b]),
+                   mapped_kappa(ev_cpu, maps_cpu[b], rule_cpu[b]))
+                  for b in range(BATCH)]
+        gap = max(abs(k_d - k_c) for k_d, k_c in kappas)
+        check(gap <= CARD_CPU_KAPPA_MARGIN,
+              f"KMeans [{label}]: the card's mapped kappa within "
+              f"{CARD_CPU_KAPPA_MARGIN} of the CPU's: {kappas}")
+        print(f"KMeans [{label}] on the CPU in {time.perf_counter() - t1:.1f}"
+              f" s (stack {cpu_stack_s:.1f} s, once): assignment to the "
+              f"card's centroids agrees on {agree:.6f}; Lloyd iterations "
+              f"{n_iter_cpu.tolist()}; mapped kappa against the rule maps, "
+              f"card / CPU: {kappas}; largest gap {gap}")
+        # stage 4's metrics: the card's counts equal the CPU's
+        for b in (0, BATCH - 1):
+            got = ev_d.calculate_metrics(*ev_d.extract_valid_samples(
+                maps[b], rule_d[b])[::-1])
+            ref = ev_cpu.calculate_metrics(*ev_cpu.extract_valid_samples(
+                maps[b].cpu(), rule_cpu[b])[::-1])
+            check(got["labels"] == ref["labels"]
+                  and np.array_equal(got["confusion_matrix"],
+                                     ref["confusion_matrix"])
+                  and all(got[k] == ref[k] for k in (
+                      "overall_accuracy", "kappa", "per_class")),
+                  f"KMeans [{label}] scene {b}: metrics on the card equal "
+                  f"the CPU's")
+    return launches_by_run
+
+
+def forest_predict_phase(dev, stack0, forest, depth, main_labels0) -> dict:
+    """Phase 17: ``forest_classify`` on scene 0's (H, W, 19) features with
+    the path's forest (fitted by the port's trainer), launch counts read
+    around one call, timed, against the CPU's plain route and the
+    supervised path's scene 0; stage 4's evaluation on the card against
+    the CPU's. Returns its launches."""
+    from rs_image_segmentation_tpu_torch.pipeline import classify
+    from rs_image_segmentation_tpu_torch.pipeline.evaluate import (
+        evaluate_classification)
+
+    hwc = np.ascontiguousarray(stack0.transpose(1, 2, 0))
+    hwc_d = torch.from_numpy(hwc).to(dev)
+    labels, launches = counted(lambda: classify.forest_classify(
+        hwc_d, forest, depth, device=dev))
+    check(launches["forest_labels"] == 1
+          and all(n == 0 for k, n in launches.items()
+                  if k != "forest_labels"),
+          f"forest_classify launches forest_labels once and no other "
+          f"kernel: {launches}")
+    check(labels.shape == (HEIGHT, WIDTH)
+          and set(torch.unique(labels).tolist())
+          <= set(forest.classes.tolist()), "forest labels (H, W) classes")
+    walls = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        classify.forest_classify(hwc_d, forest, depth, device=dev)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    cpu = classify.forest_classify(hwc, forest, depth, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    # the kernel matches gemm_labels_cm exactly (phase 4), and the supervised
+    # path's scene 0 runs it on the same stack with the same forest
+    agree = float((cpu == labels.cpu()).double().mean())
+    check(torch.equal(cpu, labels.cpu()),
+          f"forest_classify card equals the CPU (agreement {agree})")
+    agree_main = float((labels.to(torch.uint8) == main_labels0)
+                       .double().mean())
+    check(torch.equal(labels.to(torch.uint8), main_labels0),
+          f"forest_classify equals the supervised path's scene 0 "
+          f"(agreement {agree_main})")
+    three = classify.create_three_class_map(labels, "random_forest",
+                                            device=dev)
+    check(three.device == labels.device and torch.equal(
+        three.cpu(), classify.create_three_class_map(cpu, "random_forest",
+                                                     device="cpu")),
+          "create_three_class_map on the card equals the CPU's")
+    got = evaluate_classification(labels, main_labels0, device=dev)
+    ref = evaluate_classification(labels.cpu(), main_labels0.cpu(),
+                                  device="cpu")
+    check(np.array_equal(got["confusion_matrix"], ref["confusion_matrix"])
+          and got["overall_accuracy"] == ref["overall_accuracy"]
+          and got["kappa"] == ref["kappa"],
+          "evaluate_classification on the card equals the CPU's")
+    print(f"forest predict: launches {launches}; median "
+          f"{statistics.median(walls[1:]):.3f} ms per 600 x 600 scene (runs "
+          f"{[round(w, 3) for w in walls]}); on the CPU in {cpu_s:.1f} s, "
+          f"agreement with the card {agree:.6f}; with the supervised path's "
+          f"scene 0 {agree_main:.6f} (OA {got['overall_accuracy']:.6f})")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1374,7 +1595,7 @@ def main() -> int:
                                                device=dev).cpu().numpy()
     check(stack0.shape == (19, HEIGHT, WIDTH)
           and bool(np.isfinite(stack0).all()), "scene 0 stack is finite")
-    gf_cpu, plan, n_samples, depth = rule_forest(stack0)
+    gf_cpu, plan, n_samples, depth, flat_forest = rule_forest(stack0)
     gf = GemmForest(*(t.to(dev) for t in gf_cpu))
     m, n_leaves = gf.path.shape
     n_classes = gf.leaf_dist.shape[1]
@@ -1607,6 +1828,11 @@ def main() -> int:
     rows.append(single_scene_phases(dev, cfg, scenes, luts, scenes_d,
                                     luts_d))
     rows += stage_phases(dev, cfg, scenes, luts, scenes_d, luts_d)
+    rows[0]["kmeans_launches"] = kmeans_phases(
+        dev, cfg, scenes, luts, params, hists, scenes_d, luts_d, params_d,
+        hists_d)
+    rows[1]["forest_predict_launches"] = forest_predict_phase(
+        dev, stack0, flat_forest, depth, labels[0])
     print(f"chip_smoke: every check passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -6,7 +6,10 @@ subsampling), so one seed gives the same trees in both packages. A trained
 ``FlatForest`` compiles to a ``GemmForest``: a (F, M) one-hot feature
 selector, (M,) thresholds, a (M, L) signed path matrix, (L,) path lengths
 and a (L, C) leaf distribution table. Inference over channel-major
-features is ``ops.kernels.forest_labels``.
+features is ``ops.kernels.forest_labels``; ``forest_predict`` takes it for
+(N, F) rows within ``GEMM_MAX_LEAVES`` (on a CUDA tensor the kernel, on a
+CPU one its plain version), and past the cap a level-synchronous tree walk
+in plain torch, as the JAX package does.
 
 The JAX package stores ``selector`` and ``path`` as bf16; their values are
 exactly 0/+-1, so here they are f32 with the same values.
@@ -20,6 +23,8 @@ from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+
+from ..ops.kernels import forest_labels, gemm_totals_cm
 
 
 class FlatForest(NamedTuple):
@@ -161,6 +166,70 @@ def _pack_trees(trees: Sequence[dict], classes: np.ndarray,
     return forest, max_depth
 
 
+def forest_from_sklearn(clf) -> "tuple[FlatForest, int]":
+    """A fitted sklearn ``RandomForestClassifier`` as a FlatForest, read
+    through its attributes (``estimators_[i].tree_``, ``classes_``), so
+    sklearn need not be importable: each leaf's value becomes its class
+    distribution, as ``predict_proba`` reads it. Returns (forest on the
+    CPU, max_depth)."""
+    trees = []
+    max_depth = 1
+    for est in clf.estimators_:
+        tr = est.tree_
+        value = np.asarray(tr.value)[:, 0, :].astype(np.float64)
+        norm = value.sum(axis=1, keepdims=True)
+        norm[norm == 0] = 1
+        trees.append({
+            "feature": np.asarray(tr.feature).astype(np.int32),
+            "threshold": np.asarray(tr.threshold).astype(np.float32),
+            "left": np.asarray(tr.children_left).astype(np.int32),
+            "right": np.asarray(tr.children_right).astype(np.int32),
+            "value": (value / norm).astype(np.float32),
+        })
+        max_depth = max(max_depth, int(tr.max_depth))
+    return _pack_trees(trees, np.asarray(clf.classes_).copy(), max_depth)
+
+
+def _traversal_proba(forest: FlatForest, x: torch.Tensor, max_depth: int,
+                     chunk: int = 65536) -> torch.Tensor:
+    """Mean per-tree leaf distribution of each row of (N, F) ``x``, on its
+    device: ``max_depth`` rounds, each moving every (pixel, tree) pair one
+    level down by gathers and a select (leaves loop on themselves)."""
+    dev = x.device
+    x = x.to(torch.float32)
+    feature, threshold, left, right, proba = (
+        t.to(dev) for t in (forest.feature.long(), forest.threshold,
+                            forest.left.long(), forest.right.long(),
+                            forest.leaf_proba))
+    trees = torch.arange(feature.shape[0], device=dev)
+    out = torch.empty((x.shape[0], proba.shape[-1]), device=dev)
+    for s in range(0, x.shape[0], chunk):
+        xb = x[s:s + chunk]
+        idx = torch.zeros((xb.shape[0], trees.numel()), dtype=torch.int64,
+                          device=dev)
+        for _ in range(max_depth):
+            xv = torch.gather(xb, 1, feature[trees, idx])
+            idx = torch.where(xv <= threshold[trees, idx], left[trees, idx],
+                              right[trees, idx])
+        out[s:s + chunk] = torch.mean(proba[trees, idx], dim=1)
+    return out
+
+
+def gemm_forest_proba(gf: GemmForest, x: torch.Tensor,
+                      chunk: int = 8192) -> torch.Tensor:
+    """Mean forest proba of (N, F) rows: ``ops.kernels.gemm_totals_cm``
+    over ``chunk``-row blocks, the sums that ``forest_labels`` takes its
+    labels from."""
+    return gemm_totals_cm(gf, x.to(torch.float32).T, chunk).T.contiguous()
+
+
+def gemm_forest_predict(gf: GemmForest, x: torch.Tensor) -> torch.Tensor:
+    """Labels of (N, F) rows: ``ops.kernels.forest_labels`` over the rows
+    as channel-major features (the kernel on a CUDA tensor), equal to the
+    argmax of :func:`gemm_forest_proba` with ties to the lowest class."""
+    return forest_labels(gf, x.to(torch.float32).T.contiguous())
+
+
 # host-side cache: FlatForest buffers -> compiled GemmForest
 _GEMM_CACHE: dict = {}
 GEMM_MAX_LEAVES = 16384
@@ -179,6 +248,35 @@ def _gemm_for(forest: FlatForest, n_features: int) -> Optional[GemmForest]:
     # tensor can be recycled, which would silently serve the wrong forest
     _GEMM_CACHE[key] = (forest.feature, gf)
     return gf
+
+
+def _gemm_chunk(n_leaves: int) -> int:
+    """Row block keeping the (chunk, leaves) intermediates near 64 MB."""
+    return max(512, min(65536, (64 << 20) // max(4 * n_leaves, 1)))
+
+
+def forest_predict_proba(forest: FlatForest, x: torch.Tensor,
+                         max_depth: int, chunk: int = 65536) -> torch.Tensor:
+    """Mean forest proba of (N, F) rows on their device: the GEMM form
+    within ``GEMM_MAX_LEAVES``, else the level traversal."""
+    gf = _gemm_for(forest, x.shape[1])
+    if gf is not None:
+        return gemm_forest_proba(gf, x, _gemm_chunk(gf.path.shape[1]))
+    return _traversal_proba(forest, x, max_depth, chunk)
+
+
+def forest_predict(forest: FlatForest, x: torch.Tensor, max_depth: int,
+                   chunk: int = 65536) -> torch.Tensor:
+    """sklearn's ``predict`` of (N, F) rows on their device: the class of
+    the largest mean proba, ties to the lowest index. Within
+    ``GEMM_MAX_LEAVES`` the labels come from ``ops.kernels.forest_labels``
+    (:func:`gemm_forest_predict`), past it from the level traversal."""
+    classes = forest.classes.to(x.device)
+    gf = _gemm_for(forest, x.shape[1])
+    if gf is not None:
+        return gemm_forest_predict(gf, x).to(classes.dtype)
+    proba = _traversal_proba(forest, x, max_depth, chunk)
+    return classes[torch.argmax(proba, dim=1)]
 
 
 _PLAN_CACHE: dict = {}

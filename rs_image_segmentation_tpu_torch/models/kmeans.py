@@ -1,0 +1,180 @@
+"""KMeans: k-means++ seeding and Lloyd iterations by matmuls.
+
+Counterpart of ``rs_image_segmentation_tpu.models.kmeans`` without its
+``axis_name`` (pixels sharded across devices). Distances are ``|x|^2 -
+2 x c^T + |c|^2``, one (N, F) @ (F, K) matmul an iteration; the update sums
+the points of each cluster with a one-hot (K, N) @ (N, F) matmul, whose
+result does not depend on the order of float atomics, so a rerun on one
+device gives the same labels and inertia. An empty cluster moves to the
+point farthest from its centroid (first index on ties). Convergence follows
+sklearn: the squared centroid shift against ``tol`` times the mean
+per-feature variance of the data.
+
+``fit_centroids`` fits a batch of independent problems, ``x`` of shape
+(B, N, F): each runs its own Lloyd loop, and a problem that has converged
+keeps its centroids and iteration count while the others go on (the JAX
+package's ``vmap`` of a ``while_loop``). The loop syncs with the host once
+an iteration, to test whether any problem is still active.
+
+The k-means++ picks are Gumbel-max draws. The noise comes from a CPU
+``torch.Generator`` and is copied to the data's device once, so a run on
+the card and one on the CPU draw the same noise; every problem of a batch
+shares it, as every scene of the JAX program shares one key. The JAX and
+torch random streams differ, so cluster ids differ from the JAX package's:
+fits are compared by quality (inertia, mapped kappa), assignments exactly.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..backend import as_tensor
+
+
+class KMeansState(NamedTuple):
+    centroids: torch.Tensor  # (K, F)
+    inertia: torch.Tensor    # ()
+    n_iter: torch.Tensor     # () int64
+
+
+def _sq_norms(x: torch.Tensor) -> torch.Tensor:
+    return torch.sum(x * x, dim=-1, keepdim=True)
+
+
+def _sq_dists(x: torch.Tensor, c: torch.Tensor,
+              xn: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, N, F) points, (B, K, F) centroids -> (B, N, K) squared
+    distances, clamped at 0 (the expansion can cancel below it)."""
+    xn = _sq_norms(x) if xn is None else xn
+    cn = torch.sum(c * c, dim=-1)[:, None, :]
+    cross = torch.bmm(x, c.transpose(1, 2))
+    return torch.clamp_min(xn - 2.0 * cross + cn, 0.0)
+
+
+def gumbel_noise(generator: torch.Generator, k: int, n: int) -> torch.Tensor:
+    """(k, n) standard Gumbel draws, f32 on the CPU: ``-log(-log(u))`` with
+    ``u`` uniform in [tiny, 1), so every draw is finite."""
+    u = torch.rand((k, n), generator=generator, dtype=torch.float32)
+    u = torch.clamp_min(u, torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def kmeans_plus_plus_init(x: torch.Tensor, k: int,
+                          generator: torch.Generator) -> torch.Tensor:
+    """k-means++ seeding of (N, F) or (B, N, F) points -> (K, F) or (B, K,
+    F) centroids. Each pick is the argmax of ``log(weight) + Gumbel``
+    (weight 0 reads as -inf), which draws an index with probability
+    proportional to its weight; the first pick weighs every point 1, the
+    next ones the squared distance to the nearest centroid so far."""
+    xb = x if x.dim() == 3 else x[None]
+    b, n, f = xb.shape
+    noise = gumbel_noise(generator, k, n).to(xb.device)
+    rows = torch.arange(b, device=xb.device)
+    cents = xb.new_zeros((b, k, f))
+    cents[:, 0] = xb[:, torch.argmax(noise[0])]
+    d2 = torch.full((b, n), float("inf"), device=xb.device)
+    for i in range(1, k):
+        d2 = torch.minimum(d2, _sq_dists(xb, cents[:, i - 1:i])[..., 0])
+        logits = torch.where(d2 > 0, torch.log(torch.where(d2 > 0, d2, 1.0)),
+                             float("-inf"))
+        cents[:, i] = xb[rows, torch.argmax(logits + noise[i], dim=1)]
+    return cents if x.dim() == 3 else cents[0]
+
+
+def _lloyd(x: torch.Tensor, c: torch.Tensor, xn: torch.Tensor):
+    """One batched Lloyd step: (new centroids (B, K, F), labels (B, N),
+    inertia (B,))."""
+    k = c.shape[1]
+    mind2, labels = torch.min(_sq_dists(x, c, xn), dim=2)   # first index
+    inertia = torch.sum(mind2, dim=1)
+    onehot = (labels[..., None] == torch.arange(k, device=x.device)
+              ).to(x.dtype)                                  # (B, N, K)
+    counts = torch.sum(onehot, dim=1)                        # exact < 2^24
+    # one (K, N) @ (N, F) matmul a problem: cuBLAS splits its long N
+    # reduction across the card, which it does not for the batched
+    # product of these shapes (ten times slower on an H100)
+    sums = torch.stack([oh.T @ xb for oh, xb in zip(onehot, x)])
+    new = sums / torch.where(counts > 0, counts, 1.0)[..., None]
+    far = x[torch.arange(x.shape[0], device=x.device),
+            torch.argmax(mind2, dim=1)]                      # (B, F)
+    new = torch.where((counts > 0)[..., None], new, far[:, None, :])
+    return new, labels, inertia
+
+
+def lloyd_step(x: torch.Tensor, centroids: torch.Tensor,
+               xn: Optional[torch.Tensor] = None):
+    """One Lloyd iteration of (N, F) points from (K, F) centroids:
+    ``(new_centroids, labels, inertia)``. ``xn``: the points' squared
+    norms (N, 1), if the caller holds them."""
+    out = _lloyd(x[None], centroids[None],
+                 _sq_norms(x[None]) if xn is None else xn[None])
+    return tuple(t[0] for t in out)
+
+
+def _tol_abs(x: torch.Tensor, tol: float) -> torch.Tensor:
+    """sklearn's tolerance of each problem of a (B, N, F) batch: ``tol``
+    times the mean per-feature variance."""
+    n = x.shape[1]
+    mean = torch.sum(x, dim=1, keepdim=True) / n
+    var = torch.sum((x - mean) ** 2, dim=1) / n
+    return tol * torch.mean(var, dim=1)
+
+
+def fit_centroids(x: torch.Tensor, k: int, seed: int = 42,
+                  max_iter: int = 300, tol: float = 1e-4,
+                  init_centroids=None):
+    """Lloyd to convergence on a (B, N, F) f32 batch of problems:
+    ``(centroids (B, K, F), n_iter (B,), squared norms (B, N, 1))``.
+
+    Starts from ``init_centroids`` ((K, F) for every problem, or (B, K,
+    F)) when given, else from k-means++ with the Gumbel noise of ``seed``.
+    A problem stops once its squared centroid shift is at most its
+    tolerance, or after ``max_iter`` iterations."""
+    if init_centroids is not None:
+        init = as_tensor(init_centroids, x.device, torch.float32)
+        if init.shape[-2] != k:
+            raise ValueError(f"init_centroids has {init.shape[-2]} rows, "
+                             f"expected k={k}")
+        cents = init.expand(x.shape[0], *init.shape[-2:])
+    else:
+        cents = kmeans_plus_plus_init(
+            x, k, torch.Generator().manual_seed(seed))
+    tol_abs = _tol_abs(x, tol)
+    xn = _sq_norms(x)
+    shift = torch.full((x.shape[0],), float("inf"), device=x.device)
+    n_iter = torch.zeros((x.shape[0],), dtype=torch.int64, device=x.device)
+    while True:
+        active = (shift > tol_abs) & (n_iter < max_iter)
+        if not bool(active.any()):          # the iteration's one host sync
+            break
+        new, _, _ = _lloyd(x, cents, xn)
+        step = torch.sum((new - cents) ** 2, dim=(1, 2))
+        cents = torch.where(active[:, None, None], new, cents)
+        shift = torch.where(active, step, shift)
+        n_iter = n_iter + active.to(torch.int64)
+    return cents, n_iter, xn
+
+
+def kmeans_fit_predict(x: torch.Tensor, k: int, seed: int = 42,
+                       max_iter: int = 300, tol: float = 1e-4,
+                       init_centroids=None):
+    """Fit and predict on (N, F) points (pre-scaled by the caller):
+    ``(labels, KMeansState)``, the labels and inertia from one last step on
+    the converged centroids. ``init_centroids``: an optional (K, F) warm
+    start in place of k-means++ (still gated by ``tol`` and
+    ``max_iter``); a wrong K raises ``ValueError``."""
+    xb = x.to(torch.float32)[None]
+    cents, n_iter, xn = fit_centroids(xb, k, seed, max_iter, tol,
+                                      init_centroids)
+    _, labels, inertia = _lloyd(xb, cents, xn)
+    return labels[0], KMeansState(cents[0], inertia[0], n_iter[0])
+
+
+def minmax_scale_features(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """sklearn's MinMaxScaler over dim ``dim`` of ``x`` (the samples; 0 for
+    (N, F) rows): each feature to [0, 1], a constant feature to 0."""
+    mn = torch.amin(x, dim=dim, keepdim=True)
+    rng = torch.amax(x, dim=dim, keepdim=True) - mn
+    return (x - mn) / torch.where(rng > 0, rng, 1.0)

@@ -232,14 +232,13 @@ lut_hist.launches = 0
 _CHUNK = 32768      # pixels per matmul block of the plain forest
 
 
-def gemm_labels_cm(gf, x_cm: torch.Tensor) -> torch.Tensor:
-    """Plain version of :func:`forest_labels` (the JAX package's
-    ``pipeline.turbo.gemm_labels_cm``): matmuls over pixel chunks, the
-    feature pick and the votes in f32 (exact: one-hot and +-1 operands).
-    The leaf-distribution sum runs in f64 and rounds once to f32, so the
-    f32 totals do not depend on the summation order (see
-    ``csrc/forest_labels.cu``). ``x_cm``: (F, N) or (B, F, N) f32 -> (N,)
-    or (B, N) int32."""
+def gemm_totals_cm(gf, x_cm: torch.Tensor, chunk: int = _CHUNK
+                   ) -> torch.Tensor:
+    """Mean leaf distribution of each pixel of (F, N) f32 features ->
+    (C, N) f32, by matmuls over ``chunk``-pixel blocks: the feature pick
+    and the votes in f32 (exact: one-hot and +-1 operands), the
+    leaf-distribution sum in f64 rounded once to f32, so the totals do not
+    depend on the summation order (see ``csrc/forest_labels.cu``)."""
     dev = x_cm.device
     sel_t = gf.selector.to(dev).T                       # (M, F)
     thr = gf.thresholds.to(dev)[:, None]
@@ -247,21 +246,26 @@ def gemm_labels_cm(gf, x_cm: torch.Tensor) -> torch.Tensor:
     plen = gf.path_len.to(dev)[:, None]
     dist_t = gf.leaf_dist.to(dev, torch.float64).T      # (C, L)
     inv = gf.inv_trees.to(dev)
-    classes = gf.classes.to(dev)
-    x3 = x_cm if x_cm.dim() == 3 else x_cm[None]
-    out = torch.empty((x3.shape[0], x3.shape[2]), dtype=classes.dtype,
+    out = torch.empty((dist_t.shape[0], x_cm.shape[1]), dtype=torch.float32,
                       device=dev)
-    for b in range(x3.shape[0]):
-        for s in range(0, x3.shape[2], _CHUNK):
-            xb = x3[b, :, s:s + _CHUNK]
-            xv = sel_t @ xb
-            sgn = torch.where(xv <= thr, 1.0, -1.0)
-            votes = path_t @ sgn
-            fired = (votes == plen).to(torch.float64)
-            total = (dist_t @ fired).to(torch.float32) * inv
-            # torch.argmax returns the first maximal index: ties go to the
-            # lowest class, as in sklearn and the JAX package
-            out[b, s:s + _CHUNK] = classes[torch.argmax(total, dim=0)]
+    for s in range(0, x_cm.shape[1], chunk):
+        sgn = torch.where(sel_t @ x_cm[:, s:s + chunk] <= thr, 1.0, -1.0)
+        fired = (path_t @ sgn == plen).to(torch.float64)
+        out[:, s:s + chunk] = (dist_t @ fired).to(torch.float32) * inv
+    return out
+
+
+def gemm_labels_cm(gf, x_cm: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`forest_labels` (the JAX package's
+    ``pipeline.turbo.gemm_labels_cm``): the argmax of
+    :func:`gemm_totals_cm`. ``x_cm``: (F, N) or (B, F, N) f32 -> (N,) or
+    (B, N) int32."""
+    classes = gf.classes.to(x_cm.device)
+    x3 = x_cm if x_cm.dim() == 3 else x_cm[None]
+    # torch.argmax returns the first maximal index: ties go to the lowest
+    # class, as in sklearn and the JAX package
+    out = torch.stack([classes[torch.argmax(gemm_totals_cm(gf, xb), dim=0)]
+                       for xb in x3])
     return out if x_cm.dim() == 3 else out[0]
 
 

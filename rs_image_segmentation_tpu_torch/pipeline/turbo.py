@@ -1,17 +1,21 @@
 """The turbo programs: over a written-out batch dimension the supervised
-path (raw uint8 scenes -> 19-channel channel-major stack -> forest labels)
-and the batched rule program; and the single-scene rule program.
+path (raw uint8 scenes -> 19-channel channel-major stack -> forest labels),
+the KMeans program (the same stack -> MinMax -> k-means fit -> cluster
+maps) and the batched rule program; and the single-scene rule and KMeans
+programs.
 
 Counterpart of ``rs_image_segmentation_tpu.pipeline.turbo``
-(``classify_scenes_turbo``, ``rule_based_scenes_turbo_batch``,
+(``classify_scenes_turbo``, ``kmeans_scenes_turbo``,
+``kmeans_scenes_turbo_batch``, ``rule_based_scenes_turbo_batch``,
 ``rule_based_scenes_turbo`` and the functions they run). Every percentile
 comes from a 256-bin int32 histogram (no sort), imagery stays (B, C, H, W)
 channel-major, and every reduction of the JAX program's per-scene ``vmap``
 (percentiles, the PCA Gram, the Sobel maximum) stays per scene. Two CUDA
 kernels carry the path: ``ops.kernels.lut_hist`` (the preamble) and
 ``ops.kernels.forest_labels`` (the forest); on CPU tensors each runs its
-plain PyTorch version. The batched rule program shares the preamble and
-removes small components through
+plain PyTorch version. The KMeans programs share the preamble; their
+fit (``models.kmeans``) and assignment are matmuls. The batched rule
+program shares the preamble and removes small components through
 ``ops.components.remove_small_components_batch`` (CUDA kernels
 ``ccmin_prop``, ``hist_dense`` and ``keep_lut``); the single-scene one
 through ``pipeline.classify.rule_based_classify`` (CUDA kernel
@@ -33,6 +37,7 @@ import torch
 from ..backend import DeviceLike, as_tensor, resolve_device
 from ..core.config import FeatureStageConfig, RuleBasedConfig
 from ..models.forest import GemmForest
+from ..models.kmeans import fit_centroids, minmax_scale_features
 from ..ops.components import remove_small_components_batch
 from ..ops.indices import mndwi, ndbi, ndvi, ndwi, spectral_indices
 from ..ops.kernels import (apply_u8_lut, forest_labels, gemm_labels_cm,
@@ -45,7 +50,8 @@ from .classify import rule_based_classify
 
 __all__ = ["apply_u8_lut", "histogram256", "percentiles_from_counts",
            "hierarchical_stack_turbo_cm", "gemm_labels_cm",
-           "classify_scenes_turbo", "rule_based_scenes_turbo_batch",
+           "classify_scenes_turbo", "kmeans_scenes_turbo",
+           "kmeans_scenes_turbo_batch", "rule_based_scenes_turbo_batch",
            "rule_based_scenes_turbo"]
 
 
@@ -207,6 +213,105 @@ def classify_scenes_turbo(scenes_u8, stretch_luts_u8, gf: GemmForest,
     stacks = _stack_cm_from_parts(*_preamble(scenes, luts, sp, hh), cfg)
     labels = forest_labels(gf, stacks.reshape(b, stacks.shape[1], h * w))
     return labels.reshape(b, h, w).to(torch.uint8)
+
+
+# ------------------------------------------------------- KMeans programs
+
+def kmeans_features(scenes_u8: torch.Tensor, stretch_luts_u8: torch.Tensor,
+                    cfg: FeatureStageConfig, sp=None, hist_in=None
+                    ) -> torch.Tensor:
+    """(B, 7, H, W) raw scenes -> (B, 19, H * W) stacks, each feature of
+    each scene MinMax-scaled over its pixels (sklearn's MinMaxScaler; a
+    constant feature to 0)."""
+    stacks = _stack_cm_from_parts(*_preamble(scenes_u8, stretch_luts_u8,
+                                             sp, hist_in), cfg)
+    b, f, h, w = stacks.shape
+    return minmax_scale_features(stacks.reshape(b, f, h * w), dim=2)
+
+
+def kmeans_fit(xs_cm: torch.Tensor, n_clusters: int, seed: int,
+               fit_stride: int, shared_fit: bool, init_cents=None):
+    """The fit of the KMeans program on scaled (B, F, N) features:
+    ``(centroids of each scene (B, K, F), the fitted centroids ((K, F)
+    with ``shared_fit``, else (B, K, F)), Lloyd iterations (1,) or
+    (B,))``.
+
+    Per scene, Lloyd runs on every ``fit_stride``-th pixel (a strided
+    slice); with ``shared_fit``, one fit runs on every ``fit_stride * B``-th
+    pixel of each scene, scene after scene, from ``init_cents`` when
+    given."""
+    b, f, _ = xs_cm.shape
+    if shared_fit:
+        xfit = xs_cm[:, :, ::fit_stride * b].transpose(1, 2).reshape(1, -1, f)
+        cents, n_iter, _ = fit_centroids(xfit, n_clusters, seed,
+                                         init_centroids=init_cents)
+        return cents.expand(b, -1, -1), cents[0], n_iter
+    xfit = xs_cm[:, :, ::fit_stride].transpose(1, 2).contiguous()
+    cents, n_iter, _ = fit_centroids(xfit, n_clusters, seed)
+    return cents, cents, n_iter
+
+
+def assign_clusters(xs_cm: torch.Tensor, cents: torch.Tensor
+                    ) -> torch.Tensor:
+    """Every pixel's nearest centroid: (B, F, N) features and (B, K, F)
+    centroids -> (B, N) int64, ``argmin_k (|c_k|^2 - 2 c_k . x)`` (first
+    index on ties)."""
+    cross = torch.bmm(cents, xs_cm)                          # (B, K, N)
+    cn = torch.sum(cents * cents, dim=2)
+    return torch.argmin(cn[:, :, None] - 2.0 * cross, dim=1)
+
+
+def kmeans_scenes_turbo_batch(scenes_u8, stretch_luts_u8,
+                              n_clusters: int = 7,
+                              cfg: FeatureStageConfig = FeatureStageConfig(),
+                              seed: int = 42, fit_stride: int = 8,
+                              stretch_params=None, stretch_hists=None,
+                              shared_fit: bool = False, init_cents=None,
+                              return_cents: bool = False,
+                              device: DeviceLike = None):
+    """Unsupervised classification of a batch: (B, 7, H, W) raw uint8
+    scenes + (B, 7, 256) stretch LUTs -> (B, H, W) uint8 cluster maps
+    (1-based) on ``device`` (CUDA unless named).
+
+    Per scene: the 19-channel stack, MinMax scaling, a k-means++ and Lloyd
+    fit on every ``fit_stride``-th pixel, then one assignment of every
+    pixel to the converged centroids (:func:`kmeans_fit`,
+    :func:`assign_clusters`). Each scene fits on its own and stops when it
+    converges; cluster ids depend on the seed, which every scene shares.
+
+    ``shared_fit=True``: one model fitted on pixels drawn evenly from all
+    scenes, and every scene assigned to it, so cluster ids agree across
+    the batch. ``init_cents`` (only with ``shared_fit``, else
+    ``ValueError``): a (K, F) warm start for that fit. ``return_cents``:
+    also return the fitted centroids, (K, F) with ``shared_fit``, else
+    (B, K, F). ``stretch_params`` and ``stretch_hists`` are as in
+    :func:`classify_scenes_turbo`."""
+    if init_cents is not None and not shared_fit:
+        raise ValueError("init_cents warm start requires shared_fit=True")
+    scenes, luts, sp, hh = _batch_inputs(scenes_u8, stretch_luts_u8,
+                                         stretch_params, stretch_hists,
+                                         device)
+    b, _, h, w = scenes.shape
+    xs_cm = kmeans_features(scenes, luts, cfg, sp, hh)
+    cents, fit_cents, _ = kmeans_fit(xs_cm, n_clusters, seed, fit_stride,
+                                     shared_fit, init_cents)
+    maps = (assign_clusters(xs_cm, cents).reshape(b, h, w) + 1).to(
+        torch.uint8)
+    return (maps, fit_cents) if return_cents else maps
+
+
+def kmeans_scenes_turbo(scene_u8, stretch_lut_u8, n_clusters: int = 7,
+                        cfg: FeatureStageConfig = FeatureStageConfig(),
+                        seed: int = 42,
+                        device: DeviceLike = None) -> torch.Tensor:
+    """ONE (7, H, W) raw uint8 scene + its (7, 256) stretch LUT -> (H, W)
+    uint8 cluster map (1-based) on ``device`` (CUDA unless named): the
+    batched program on a batch of one, fitted on every pixel."""
+    dev = resolve_device(device)
+    return kmeans_scenes_turbo_batch(
+        as_tensor(scene_u8, dev, torch.uint8)[None],
+        as_tensor(stretch_lut_u8, dev, torch.uint8)[None], n_clusters, cfg,
+        seed, fit_stride=1, device=dev)[0]
 
 
 # ------------------------------------------------------ batched rule program

@@ -126,7 +126,8 @@ def rule_forest(stack: np.ndarray):
     port's trainer on :func:`rule_labels` of random pixels of ``stack``,
     with the fewest samples in SAMPLE_COUNTS (33 is the bundled sample
     set's size) whose GemmForest has a tree plan, i.e. the bundled model's
-    scale. Returns ``(gemm_forest, plan, n_samples, max_depth)``."""
+    scale. Returns ``(gemm_forest, plan, n_samples, max_depth,
+    flat_forest)``."""
     cfg = ForestConfig()
     flat = stack.reshape(stack.shape[0], -1)
     rng = np.random.default_rng(cfg.seed)
@@ -139,5 +140,5 @@ def rule_forest(stack: np.ndarray):
         gf = _gemm_for(forest, flat.shape[0])
         plan = forest_tree_plan(gf)
         if plan is not None:
-            return gf, plan, n, depth
+            return gf, plan, n, depth, forest
     raise RuntimeError("no sample count gave a forest with a tree plan")

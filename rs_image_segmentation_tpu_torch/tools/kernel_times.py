@@ -31,10 +31,13 @@ scenes of 7 x 600 x 600 from seed 0):
 * ``fused_calibrate_stretch`` on scene 0 as 16-bit DNs and as float DNs
   (``stage1_dns``), with gains and biases passed as host values (as
   ``preprocess_bands_f32`` passes the configuration's) and as tensors on
-  the card.
+  the card;
+* ``fused_spectral_indices`` on stage 2's normalised bands of scene 0
+  (the uint8 stage-1 artifact through ``normalize_bands``).
 
-``lut_hist`` and ``fused_calibrate_stretch`` also report the kernels one
-call launches and whether its trace holds a host-to-device copy; the
+``lut_hist``, ``fused_calibrate_stretch`` and ``fused_spectral_indices``
+also report the kernels one call launches and whether its trace holds a
+host-to-device copy; the
 stretch on host gains also stage 1's route around it (``stage1_wall_ms``).
 
 ``--root DIR`` imports the port's package from the checkout at ``DIR``
@@ -44,7 +47,7 @@ kernels can be timed by one script on one card:
     python3 rs_image_segmentation_tpu_torch/tools/kernel_times.py \\
         [--root DIR] [--kernels hist_dense,glcm_grid] [--out FILE.json]
 
-``--kernels`` picks the kernels to time (default: all seven).
+``--kernels`` picks the kernels to time (default: all eight).
 
 The timing helpers (``l2_flusher``, ``cold_ms``, ``trace_ms``,
 ``kernel_device_ms``, ``kernel_numbers``) and the fixtures
@@ -74,7 +77,8 @@ BATCH, SIZE, LARGE, SEED = 8, 600, 6000, 0
 BINS = 32768                   # the batched rule path's component-id cap
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 KERNELS = ("forest_labels", "ccmin_prop", "cc_labels", "hist_dense",
-           "glcm_grid", "lut_hist", "fused_calibrate_stretch")
+           "glcm_grid", "lut_hist", "fused_calibrate_stretch",
+           "fused_spectral_indices")
 
 
 def _need_card() -> None:
@@ -506,6 +510,22 @@ def measure(dev, which=KERNELS) -> dict:
                 res["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
                 out[f"fused_calibrate_stretch, {dtype} DNs, {how}, "
                     f"{' x '.join(map(str, dn.shape))}"] = res
+
+    if "fused_spectral_indices" in which:
+        from rs_image_segmentation_tpu_torch.pipeline.features import (
+            normalize_bands)
+        bands01 = normalize_bands(kernels.lut_hist_plain(
+            scenes_d[0], luts_d[0], skip_hist=True), cfg)
+        res = kernel_numbers(lambda: kernels.fused_spectral_indices(bands01),
+                             flush)
+        res.update(launch_numbers(
+            lambda: kernels.fused_spectral_indices(bands01)))
+        # five bands read (blue, green, red, NIR, SWIR1), seven written
+        nbytes = SIZE * SIZE * (5 + 7) * 4
+        res["bytes"] = nbytes
+        res["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        out[f"fused_spectral_indices, stage 2's normalised bands, "
+            f"{' x '.join(map(str, bands01.shape))}"] = res
     return out
 
 

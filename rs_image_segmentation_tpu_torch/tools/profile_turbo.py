@@ -1,14 +1,17 @@
 """Where a turbo path's device time goes, by ``torch.profiler``.
 
 Runs ``classify_scenes_turbo`` (or, with ``--path rule``,
-``rule_based_scenes_turbo_batch``) on the ``chip_smoke.py`` inputs (8
+``rule_based_scenes_turbo_batch``; with ``--path kmeans``,
+``kmeans_scenes_turbo_batch`` with per-scene fits, k = 7, fit stride 8) on
+the ``chip_smoke.py`` inputs (8
 synthetic scenes of 7 x 600 x 600 from seed 0, a 100-tree forest for the
 supervised path) on one CUDA card, profiles one run after a warm-up, and
 prints the card, the top kernels and the top PyTorch ops by device time,
 the device busy share of the run (kernel time over wall time), then one
 JSON line.
 
-    python -m rs_image_segmentation_tpu_torch.tools.profile_turbo [--path rule]
+    python -m rs_image_segmentation_tpu_torch.tools.profile_turbo \
+        [--path rule|kmeans]
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ BATCH, SIZE, SEED, TOP = 8, 600, 0, 15
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--path", choices=("supervised", "rule"),
+    parser.add_argument("--path", choices=("supervised", "rule", "kmeans"),
                         default="supervised")
     path = parser.parse_args(argv).path
     if not torch.cuda.is_available():
@@ -55,6 +58,7 @@ def main(argv=None) -> int:
     from ..models.forest import GemmForest
     from ..pipeline.turbo import (classify_scenes_turbo,
                                   hierarchical_stack_turbo_cm,
+                                  kmeans_scenes_turbo_batch,
                                   rule_based_scenes_turbo_batch)
     from .fixtures import rule_forest, stretch_stats_batch, synthetic_scenes
 
@@ -72,6 +76,11 @@ def main(argv=None) -> int:
             return rule_based_scenes_turbo_batch(
                 scenes_d, luts_d, cfg, stretch_params=params_d,
                 stretch_hists=hists_d, device=dev)
+    elif path == "kmeans":
+        def run():
+            return kmeans_scenes_turbo_batch(
+                scenes_d, luts_d, 7, cfg, fit_stride=8,
+                stretch_params=params_d, stretch_hists=hists_d, device=dev)
     else:
         stack0 = hierarchical_stack_turbo_cm(scenes_d[0], luts_d[0], cfg,
                                              device=dev).cpu().numpy()
