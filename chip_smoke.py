@@ -4,8 +4,9 @@ rule program and the KMeans batch program (k = 7) on an 8-scene
 7 x 600 x 600 batch; the single-scene rule program with its uncapped
 large-scene route on one 7 x 600 x 600 scene, a noise scene and one
 7 x 6000 x 6000 scene; stage 1 (preprocess, uint8 and 16-bit DNs) into
-stage 2 (the feature graph, full width) on one 7 x 600 x 600 scene; and
-forest predict and stage 4's metrics.
+stage 2 (the feature graph, full width) on one 7 x 600 x 600 scene;
+forest predict and stage 4's metrics; and the tiled large-scene pipeline
+(supervised, streamed, KMeans, resumable) on 7 x 6000 x 6000 scenes.
 
 Phases, in order; any failed check raises and the script exits non-zero:
   1. the card (nvidia-smi name and power limit); build every CUDA kernel
@@ -101,8 +102,28 @@ Phases, in order; any failed check raises and the script exits non-zero:
      features with the path's forest, launch counts read around one call
      (``forest_labels`` once, nothing else), timed, against the CPU's
      plain route and the supervised path's scene 0 (>= 99.9 %), and
-     ``evaluate_classification`` on the card equal to the CPU's; then the
-     card's line, the kernels' JSON line and the result line.
+     ``evaluate_classification`` on the card equal to the CPU's;
+ 18. the large-scene pipeline (``pipeline.large_scene``), supervised and
+     KMeans, on 7 x 6000 x 6000 reflected tilings of scenes 0 and 1 with
+     tile_rows 504 and the path's forest: ``preprocess_large`` equal to
+     the host LUT and its histogram to ``band_histograms_u8``, its
+     streaming mode (cap 0) equal to the resident one; ``lut_hist`` (uint8
+     out; the 504-row chunk with and without ``sp``/``skip_hist``, the
+     456-row last chunk, the whole scene) and ``forest_labels`` (the first
+     and last tiles' stacks) bit-equal to their plain versions;
+     ``classify_large_scene_streamed`` bit-equal to ``preprocess_large``
+     -> ``classify_large_scene`` on both scenes, launching ``lut_hist``
+     once a chunk and ``forest_labels`` once a tile and no plain version;
+     the tiled map against ``classify_scenes_turbo`` (>= 0.995, at 600^2
+     with tile_rows 63 and 504, and at 6000^2 when it fits); card against
+     CPU on a 1260^2 tiling (supervised >= 99.9 %, KMeans assignment to
+     the card's centroids >= 99.9 % and mapped kappa within 0.002, the
+     rule resumable equal to ``rule_based_large_scene``); the three
+     resumable drivers interrupted after 2 tiles or masks and resumed,
+     equal to their uninterrupted runs; times (streamed first and warm,
+     the resident route by passes, KMeans fit and assignment) and peak
+     device memory; then the card's line, the kernels' JSON line and the
+     result line.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs no
 network and no arguments; the kernel build goes to
@@ -1541,6 +1562,443 @@ def forest_predict_phase(dev, stack0, forest, depth, main_labels0) -> dict:
     return launches
 
 
+LARGE_TILE = 504                   # bench.py's tile_rows at 36 MP
+MID = 1260                         # side of the card-against-CPU tiling
+
+
+def wall_s(fn, reps: int = 5):
+    """Median host seconds of ``fn()`` over ``reps`` calls after a
+    warm-up, each closed by a synchronise; and every run's seconds."""
+    walls = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls[1:]), walls
+
+
+def event_ms(fn, reps: int = 5) -> float:
+    """Median ms between CUDA events around ``fn()`` over ``reps`` calls
+    after a warm-up (host work inside ``fn`` that waits on the card
+    counts)."""
+    ts = []
+    for _ in range(reps + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        ts.append(start.elapsed_time(stop))
+    return statistics.median(ts[1:])
+
+
+def peak_gb(fn):
+    """``fn()``'s result, and its peak device memory in GB above what was
+    allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+PLAIN_FUNCTIONS = ("lut_hist_plain", "apply_u8_lut", "gemm_labels_cm")
+
+
+def plain_calls(run):
+    """``run()``, and how often it called each of the kernels' plain
+    versions (``PLAIN_FUNCTIONS`` of ``ops.kernels``)."""
+    from rs_image_segmentation_tpu_torch.ops import kernels
+    calls = dict.fromkeys(PLAIN_FUNCTIONS, 0)
+    real = {n: getattr(kernels, n) for n in PLAIN_FUNCTIONS}
+
+    def spy(name):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return real[name](*args, **kwargs)
+        return call
+
+    for n in PLAIN_FUNCTIONS:
+        setattr(kernels, n, spy(n))
+    try:
+        out = run()
+    finally:
+        for n, f in real.items():
+            setattr(kernels, n, f)
+    return out, calls
+
+
+def large_scene_phases(dev, cfg, scenes, luts, gf, gf_cpu, rows) -> dict:
+    """Phase 18: the large-scene pipeline, supervised and KMeans, on
+    7 x 6000 x 6000 reflected tilings of scenes 0 and 1 with tile_rows
+    504: ``preprocess_large`` (resident and streaming), the two kernels at
+    the path's shapes against their plain versions, the streamed route
+    against the resident one (launch counts, no plain version), tiled
+    against monolithic, card against CPU at 1260 x 1260 (supervised,
+    KMeans, the rule resumable), the three resumable drivers interrupted
+    and resumed, then times and peak memory. Adds its numbers to the
+    kernel rows ``rows`` and returns them."""
+    import tempfile
+    from rs_image_segmentation_tpu_torch.core.config import (
+        CalibrationConfig)
+    from rs_image_segmentation_tpu_torch.io.stream import HostToDevice
+    from rs_image_segmentation_tpu_torch.ops import kernels
+    from rs_image_segmentation_tpu_torch.pipeline import large_scene as ls
+    from rs_image_segmentation_tpu_torch.pipeline import turbo
+    from rs_image_segmentation_tpu_torch.pipeline.evaluate import (
+        ClassificationEvaluator)
+    from rs_image_segmentation_tpu_torch.pipeline.preprocess import (
+        build_stretch_stats)
+    from rs_image_segmentation_tpu_torch.utils.timing import cuda_time_ms
+
+    torch.cuda.empty_cache()
+    cal = CalibrationConfig()
+    gains, biases = np.asarray(cal.gains), np.asarray(cal.biases)
+    tr = LARGE_TILE
+    n_tiles = -(-LARGE // tr)
+    mp = LARGE * LARGE / 1e6
+    out = {}
+    t0 = time.perf_counter()
+    big = reflected_tiling(scenes[0], LARGE)
+    big2 = reflected_tiling(scenes[1], LARGE)
+    lut_big, sp_big, _ = build_stretch_stats(big, gains, biases)
+    lut_big = lut_big.astype(np.uint8)
+    host_pre = stretch(big, lut_big)
+    host_hists = ls.band_histograms_u8(host_pre)
+    print(f"large scenes: 2 x {big.shape} uint8 (reflected tilings of "
+          f"scenes 0 and 1), host LUT, stretch and histograms in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # ---- 18a. preprocess_large: resident, and streaming (cap 0)
+    (pre_big, hists_big), pre_peak = peak_gb(lambda: ls.preprocess_large(
+        big, cal, return_hist=True, device=dev))
+    check(np.array_equal(pre_big, host_pre), "preprocess_large (resident) "
+          "equals the host f64 LUT applied on the host")
+    check(np.array_equal(hists_big, host_hists), "preprocess_large's "
+          "histogram equals band_histograms_u8")
+    cap = ls.DEVICE_RESIDENT_MAX_BYTES
+    ls.DEVICE_RESIDENT_MAX_BYTES = 0
+    try:
+        (pre_st, hists_st), launches_pre = counted(lambda: ls.preprocess_large(
+            big, cal, return_hist=True, device=dev))
+    finally:
+        ls.DEVICE_RESIDENT_MAX_BYTES = cap
+    check(np.array_equal(pre_st, pre_big)
+          and np.array_equal(hists_st, hists_big),
+          "preprocess_large's streaming mode equals its resident mode")
+    check(launches_pre["lut_hist"] == -(-LARGE // 2048),
+          f"the streaming mode launches lut_hist once a tile: {launches_pre}")
+    pre_s, _ = wall_s(lambda: ls.preprocess_large(big, cal, return_hist=True,
+                                                  device=dev))
+    print(f"preprocess_large at {LARGE}^2: equal to the host LUT, histogram "
+          f"equal; streaming mode equal ({launches_pre['lut_hist']} "
+          f"lut_hist launches); median {pre_s:.4f} s with host numpy in and "
+          f"out, peak {pre_peak:.3f} GB", flush=True)
+    del pre_st, host_pre
+
+    # ---- 18b. the two kernels at the path's shapes
+    up = HostToDevice(dev)
+    last0 = (n_tiles - 1) * tr
+    chunk, last = up.put(big[:, :tr]), up.put(big[:, last0:])
+    big_d = up.put(big)
+    lut_d = torch.from_numpy(lut_big).to(dev)
+    sp_d = torch.from_numpy(sp_big).to(dev)
+    errs = {"lut_hist": 0.0, "forest_labels": 0.0}
+    for label, x, kw in (
+            (f"chunk {tr} rows, sp+skip_hist", chunk,
+             dict(sp=sp_d, skip_hist=True)),
+            (f"chunk {tr} rows, with its histogram", chunk, {}),
+            (f"last chunk {LARGE - last0} rows, sp+skip_hist", last,
+             dict(sp=sp_d, skip_hist=True)),
+            (f"the {LARGE}^2 scene, with its histogram", big_d, {})):
+        got = kernels.lut_hist(x, lut_d, out_u8=True, **kw)
+        ref = kernels.lut_hist_plain(x, lut_d, out_u8=True,
+                                     skip_hist="skip_hist" in kw)
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            check(g.shape == r.shape and g.dtype == r.dtype and torch.equal(
+                g, r), f"lut_hist uint8 out [{label}] bit-equal")
+        unit = kernels.lut_hist_unit(x, got[0])
+        check(unit == 16, f"lut_hist [{label}] takes the 16-byte unit: "
+              f"{unit}")
+        print(f"check lut_hist uint8 out [{label}] at {tuple(x.shape)}: "
+              f"bit-equal, unit {unit}")
+    src = ls._tile_src(pre_big, dev)
+    g_big = ls._global_passes(pre_big, cfg, tr, src=src, hists=hists_big,
+                              device=dev)
+    stack_tile, _ = ls._make_stack_fn(pre_big, cfg, tr, globals_dict=g_big,
+                                      device=dev)
+    tiles = list(ls._halo_tiles(LARGE, tr))
+    tile_x = None
+    for y0, rows_, ys, ye in (tiles[0], tiles[-1]):
+        x = stack_tile(src[:, ys:ye], y0, y0 - ys, rows_).reshape(19, -1)
+        tile_x = x if tile_x is None else tile_x
+        got = kernels.forest_labels(gf, x)
+        ref = kernels.gemm_labels_cm(gf, x)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"forest_labels bit-equal on the tile "
+              f"at row {y0} ({tuple(x.shape)})")
+        print(f"check forest_labels on the tile at row {y0}, "
+              f"{tuple(x.shape)}: bit-equal")
+    flush = l2_flusher(dev)
+    chunk_nums = kernel_numbers(lambda: kernels.lut_hist(
+        chunk, lut_d, out_u8=True, sp=sp_d, skip_hist=True), flush)
+    idx64 = chunk.reshape(BANDS, -1).long()
+    gather_ms = cold_ms(lambda: torch.gather(lut_d, 1, idx64), flush)
+    chunk_bytes = chunk.numel() * 2 + lut_d.numel()
+    tile_ms = cuda_time_ms(lambda: kernels.forest_labels(gf, tile_x), 5, 1)
+    print(f"lut_hist uint8 out at the chunk shape {tuple(chunk.shape)}, "
+          f"device ms (back to back / L2 flushed / alone): "
+          f"{chunk_nums['ms']:.4f} / {chunk_nums['cold_ms']:.4f} / "
+          f"{chunk_nums['alone_ms']}; torch.gather (int64 indices widened "
+          f"beforehand) {gather_ms:.4f} flushed; bound "
+          f"{bound(chunk_bytes, 0)[0]:.4f}; forest_labels on a tile "
+          f"{tile_ms:.4f} ms", flush=True)
+    del big_d, last
+
+    # ---- 18c. the supervised routes
+    def streamed(raw):
+        return ls.classify_large_scene_streamed(raw, gf, cal, cfg,
+                                                tile_rows=tr, device=dev)
+
+    def resident(pre, hists):
+        return ls.classify_large_scene(pre, gf, cfg, tile_rows=tr,
+                                       hists=hists, device=dev)
+
+    t0 = time.perf_counter()
+    ((map_st, plain), launches_st), st_peak = peak_gb(
+        lambda: counted(lambda: plain_calls(lambda: streamed(big))))
+    first_s = time.perf_counter() - t0
+    check(launches_st["lut_hist"] == n_tiles
+          and launches_st["forest_labels"] == n_tiles
+          and all(n == 0 for k, n in launches_st.items()
+                  if k not in ("lut_hist", "forest_labels")),
+          f"the streamed route launches lut_hist once a chunk and "
+          f"forest_labels once a tile, nothing else: {launches_st}")
+    check(not any(plain.values()), f"no plain version on the streamed "
+          f"route: {plain}")
+    map_res, res_peak = peak_gb(lambda: resident(pre_big, hists_big))
+    check(map_st.shape == (LARGE, LARGE) and map_st.dtype == np.int32
+          and set(np.unique(map_st)) <= set(gf_cpu.classes.tolist()),
+          "streamed map (H, W) int32 of forest classes")
+    check(np.array_equal(map_st, map_res), "classify_large_scene_streamed "
+          "bit-equal to preprocess_large -> classify_large_scene (scene 0)")
+    pre2, hists2 = ls.preprocess_large(big2, cal, return_hist=True,
+                                       device=dev)
+    check(np.array_equal(streamed(big2), resident(pre2, hists2)),
+          "classify_large_scene_streamed bit-equal to the resident route "
+          "(scene 1)")
+    counts = np.bincount(map_st.reshape(-1), minlength=5)
+    print(f"supervised at {LARGE}^2: streamed bit-equal to resident on "
+          f"both scenes; launches {launches_st}; plain calls {plain}; class "
+          f"counts {counts.tolist()}", flush=True)
+    warm_s, warm_runs = wall_s(lambda: streamed(big2))
+    # the route's host statistics alone (raw histograms, LUT, params)
+    host_s, _ = wall_s(lambda: build_stretch_stats(big2, gains, biases), 3)
+    res_s, res_runs = wall_s(lambda: resident(pre_big, hists_big))
+    classify_tile = ls._tile_classifier(g_big, gf, cfg, (LARGE, LARGE), dev)
+    passes = {
+        "A (histograms, stats)": event_ms(lambda: ls.compute_global_stats(
+            pre_big, cfg, ls._scene_hists(pre_big, src, tr))),
+        "B/C (PCA sums, GLCM grid, Sobel max)": event_ms(
+            lambda: ls._global_passes(pre_big, cfg, tr, src=src,
+                                      hists=hists_big, device=dev)),
+        "D (stack and forest, every tile)": event_ms(lambda: [
+            classify_tile(src[:, ys:ye], y0, y0 - ys, r)
+            for y0, r, ys, ye in tiles])}
+    out["supervised"] = {
+        "large_scene_first_e2e_s": first_s, "large_scene_warm_e2e_s": warm_s,
+        "large_scene_mp_per_s": mp / warm_s,
+        "warm_runs_s": warm_runs, "host_stretch_stats_s": host_s,
+        "resident_e2e_s": res_s,
+        "resident_runs_s": res_runs, "resident_passes_ms": passes,
+        "preprocess_large_s": pre_s, "peak_gb": {
+            "streamed": st_peak, "resident_classify": res_peak,
+            "preprocess_large": pre_peak},
+        "launches_streamed": launches_st}
+    print(f"supervised at {LARGE}^2, streamed (host numpy in and out): "
+          f"first {first_s:.4f} s, warm median {warm_s:.4f} s "
+          f"({mp / warm_s:.3f} MP/s; runs "
+          f"{[round(w, 4) for w in warm_runs]}), of which the host's "
+          f"build_stretch_stats {host_s:.4f} s; resident classify median "
+          f"{res_s:.4f} s (runs {[round(w, 4) for w in res_runs]}), by "
+          f"events " + "; ".join(f"{k} {v:.2f} ms" for k, v in passes.items())
+          + f"; peak GB streamed {st_peak:.3f}, resident {res_peak:.3f}",
+          flush=True)
+    print(json.dumps({"large_scene_warm_e2e_s": warm_s,
+                      "large_scene_mp_per_s": mp / warm_s,
+                      "large_scene_first_e2e_s": first_s}))
+    del pre2
+
+    # ---- 18d. tiled against monolithic
+    pre0 = ls.preprocess_large(scenes[0], cal, device=dev)
+    mono0 = turbo.classify_scenes_turbo(scenes[:1], luts[:1], gf, cfg,
+                                        device=dev)[0].cpu().numpy()
+    agree = {}
+    for t in (63, 504):
+        tiled = ls.classify_large_scene(pre0, gf, cfg, tile_rows=t,
+                                        device=dev)
+        agree[f"{HEIGHT}^2, tile_rows {t}"] = float((tiled == mono0).mean())
+    try:
+        mono_big, mono_peak = peak_gb(lambda: turbo.classify_scenes_turbo(
+            big[None], lut_big[None], gf, cfg, device=dev)[0].cpu().numpy())
+        agree[f"{LARGE}^2, tile_rows {tr}"] = float((map_res == mono_big)
+                                                    .mean())
+        del mono_big
+    except torch.cuda.OutOfMemoryError:
+        mono_peak = None
+        torch.cuda.empty_cache()
+    check(all(a >= 0.995 for a in agree.values()), f"tiled against "
+          f"monolithic >= 0.995: {agree}")
+    out["tiled_vs_monolithic"] = {"agreement": agree,
+                                  "monolithic_peak_gb_6000": mono_peak}
+    print(f"tiled against monolithic (classify_scenes_turbo): {agree}; "
+          f"monolithic peak at {LARGE}^2: "
+          + ("did not fit" if mono_peak is None else f"{mono_peak:.3f} GB"),
+          flush=True)
+
+    # ---- 18e. card against CPU at MID x MID
+    t0 = time.perf_counter()
+    mid = reflected_tiling(scenes[0], MID)
+    pre_mid = ls.preprocess_large(mid, cal, device="cpu")
+    sup_d = ls.classify_large_scene(pre_mid, gf, cfg, tr, device=dev)
+    sup_c = ls.classify_large_scene(pre_mid, gf_cpu, cfg, tr, device="cpu")
+    sup_agree = float((sup_d == sup_c).mean())
+    check(sup_agree >= 0.999, f"supervised card against CPU at {MID}^2: "
+          f"{sup_agree}")
+
+    def kmeans_parts(device):
+        src_m = ls._tile_src(pre_mid, device)
+        fn, _ = ls._make_stack_fn(pre_mid, cfg, tr, src=src_m, device=device)
+        return src_m, fn
+
+    def assign_map(parts, fit):
+        assign = ls._kmeans_assign_fn(*fit, KMEANS_K)
+        return torch.cat([assign(s).reshape(r, -1) for _, r, s in
+                          ls._kmeans_tiles(pre_mid, cfg, tr, *parts)]
+                         ).cpu().numpy().astype(np.int32)
+
+    parts_d, parts_c = kmeans_parts(dev), kmeans_parts(torch.device("cpu"))
+    fit_d = ls._kmeans_fit_large(pre_mid, KMEANS_K, cfg, tr, KMEANS_SEED,
+                                 0.1, 2_000_000, *parts_d)
+    km_d = assign_map(parts_d, fit_d)
+    same = assign_map(parts_c, [t.cpu() for t in fit_d])
+    km_agree = float((same == km_d).mean())
+    check(km_agree >= 0.999, f"KMeans at {MID}^2: the CPU's assignment to "
+          f"the card's centroids agrees with the card on {km_agree}")
+    km_c = ls.kmeans_large_scene(pre_mid, KMEANS_K, cfg, tr, KMEANS_SEED,
+                                 device="cpu")
+    rule_d = ls.rule_based_large_scene(pre_mid, cfg, device=dev)
+    rule_c = ls.rule_based_large_scene(pre_mid, cfg, device="cpu")
+    kappa_d = mapped_kappa(ClassificationEvaluator(device=dev),
+                           torch.from_numpy(km_d).to(dev),
+                           torch.from_numpy(rule_d).to(dev))
+    kappa_c = mapped_kappa(ClassificationEvaluator(device="cpu"),
+                           torch.from_numpy(km_c), torch.from_numpy(rule_c))
+    check(abs(kappa_d - kappa_c) <= CARD_CPU_KAPPA_MARGIN,
+          f"KMeans at {MID}^2: mapped kappa card {kappa_d} and CPU "
+          f"{kappa_c} within {CARD_CPU_KAPPA_MARGIN}")
+    with tempfile.TemporaryDirectory() as d1, \
+            tempfile.TemporaryDirectory() as d2:
+        rres_d = ls.rule_based_large_scene_resumable(pre_mid, d1, cfg,
+                                                     device=dev)
+        rres_c = ls.rule_based_large_scene_resumable(pre_mid, d2, cfg,
+                                                     device="cpu")
+    check(np.array_equal(rres_d, rule_d) and np.array_equal(rres_c, rule_c),
+          f"rule_based_large_scene_resumable equals rule_based_large_scene "
+          f"at {MID}^2, on the card and on the CPU")
+    rule_agree = float((rule_d == rule_c).mean())
+    check(rule_agree >= 0.999, f"rule route card against CPU at {MID}^2: "
+          f"{rule_agree}")
+    out["card_vs_cpu_1260"] = {
+        "supervised_agreement": sup_agree, "kmeans_assignment_agreement":
+        km_agree, "kmeans_mapped_kappa": [kappa_d, kappa_c],
+        "rule_agreement": rule_agree}
+    print(f"card against CPU at {MID}^2 in {time.perf_counter() - t0:.1f} s: "
+          f"supervised {sup_agree:.6f}; KMeans assignment to the card's "
+          f"centroids {km_agree:.6f}, mapped kappa card {kappa_d:.6f} / CPU "
+          f"{kappa_c:.6f}; rule {rule_agree:.6f}, resumable equal on both",
+          flush=True)
+    del mid, pre_mid
+
+    # ---- 18f. KMeans at full size: fit, assignment, peak
+    km_big, km_peak = peak_gb(lambda: ls.kmeans_large_scene(
+        pre_big, KMEANS_K, cfg, tr, KMEANS_SEED, device=dev))
+    check(km_big.shape == (LARGE, LARGE) and km_big.min() >= 1
+          and km_big.max() <= KMEANS_K, f"KMeans map at {LARGE}^2, 1-based")
+    fit_ms = event_ms(lambda: ls._kmeans_fit_large(
+        pre_big, KMEANS_K, cfg, tr, KMEANS_SEED, 0.1, 2_000_000, src,
+        stack_tile), 3)
+    fit = ls._kmeans_fit_large(pre_big, KMEANS_K, cfg, tr, KMEANS_SEED, 0.1,
+                               2_000_000, src, stack_tile)
+    assign = ls._kmeans_assign_fn(*fit, KMEANS_K)
+    assign_ms = event_ms(lambda: [assign(s) for _, _, s in ls._kmeans_tiles(
+        pre_big, cfg, tr, src, stack_tile)], 3)
+    km_s, km_runs = wall_s(lambda: ls.kmeans_large_scene(
+        pre_big, KMEANS_K, cfg, tr, KMEANS_SEED, device=dev), 3)
+    out["kmeans"] = {"e2e_s": km_s, "runs_s": km_runs, "fit_ms": fit_ms,
+                     "assignment_ms": assign_ms, "peak_gb": km_peak}
+    print(f"kmeans_large_scene at {LARGE}^2 (k {KMEANS_K}, 2^20 fit "
+          f"pixels): median {km_s:.4f} s (runs "
+          f"{[round(w, 4) for w in km_runs]}); by events fit (stacks, "
+          f"sample, Lloyd) {fit_ms:.2f} ms, assignment (stacks and "
+          f"argmin) {assign_ms:.2f} ms; peak {km_peak:.3f} GB", flush=True)
+
+    # ---- 18g. the resumable drivers, interrupted and resumed
+    rule_big = ls.rule_based_large_scene(pre_big, cfg, hists=hists_big,
+                                         device=dev)
+    drivers = {
+        "classify": (lambda d, **kw: ls.classify_large_scene_resumable(
+            pre_big, gf, d, cfg, tile_rows=tr, hists=hists_big, device=dev,
+            **kw), map_res),
+        "kmeans": (lambda d, **kw: ls.kmeans_large_scene_resumable(
+            pre_big, d, KMEANS_K, cfg, tile_rows=tr, seed=KMEANS_SEED,
+            device=dev, **kw), km_big),
+        "rule": (lambda d, **kw: ls.rule_based_large_scene_resumable(
+            pre_big, d, cfg, hists=hists_big, device=dev, **kw), rule_big)}
+    resumed_launches = {}
+    for name, (run, ref) in drivers.items():
+        with tempfile.TemporaryDirectory() as d:
+            try:
+                run(d, interrupt_after=2)
+                check(False, f"{name} resumable: interrupt_after=2 raises")
+            except ls.TileInterrupt:
+                pass
+            got, resumed_launches[name] = counted(lambda: run(d))
+        check(np.array_equal(got, ref), f"{name} resumable: interrupted "
+              f"after 2 and resumed, equal to the uninterrupted run")
+    check(resumed_launches["rule"]["cc_labels"] == 2
+          and resumed_launches["classify"]["forest_labels"] == n_tiles - 2,
+          f"the resumed runs compute only what was left: {resumed_launches}")
+    out["resumed_launches"] = resumed_launches
+    print(f"resumable drivers at {LARGE}^2: each interrupted after 2 and "
+          f"resumed, bit-equal to its uninterrupted run; the resumed runs "
+          f"launch {resumed_launches}", flush=True)
+
+    by_name = {r["name"]: r for r in rows}
+    by_name["lut_hist"]["large_scene"] = {
+        "launches_streamed": launches_st["lut_hist"],
+        "chunk_shape": list(chunk.shape), "chunk_uint8_out":
+        timing_keys(chunk_nums), "chunk_gather_ms": gather_ms,
+        "chunk_bound_ms": bound(chunk_bytes, 0)[0],
+        "launches_preprocess_large_streaming": launches_pre["lut_hist"]}
+    by_name["forest_labels"]["large_scene"] = {
+        "launches_streamed": launches_st["forest_labels"],
+        "tile_shape": list(tile_x.shape), "tile_ms": tile_ms,
+        "launches_classify_resumed": resumed_launches["classify"][
+            "forest_labels"]}
+    by_name["cc_labels"]["launches_rule_resumed"] = resumed_launches[
+        "rule"]["cc_labels"]
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1833,6 +2291,8 @@ def main() -> int:
         hists_d)
     rows[1]["forest_predict_launches"] = forest_predict_phase(
         dev, stack0, flat_forest, depth, labels[0])
+    large = large_scene_phases(dev, cfg, scenes, luts, gf, gf_cpu, rows)
+    print(json.dumps({"large_scene": large}))
     print(f"chip_smoke: every check passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -20,7 +20,14 @@ Ported so far:
   host LUT; other dtypes: CUDA kernel ``fused_calibrate_stretch``), into
   stage 2, ``pipeline.features.extract_features`` and
   ``hierarchical_stack_fused`` (CUDA kernels ``fused_spectral_indices``
-  and ``glcm_grid``).
+  and ``glcm_grid``);
+* the KMeans programs, forest predict and stage 4's metrics;
+* the tiled large-scene pipeline, ``pipeline.large_scene``
+  (``preprocess_large``, ``classify_large_scene`` and its streamed and
+  resumable forms, ``kmeans_large_scene`` and the resumable KMeans and
+  rule drivers; CUDA kernels ``lut_hist``, ``forest_labels`` and
+  ``cc_labels``), with host-to-device tile streaming from pinned memory
+  (``io.stream``).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
 no CUDA device and no explicit device they raise (``backend.py``).
