@@ -5,8 +5,9 @@ rule program and the KMeans batch program (k = 7) on an 8-scene
 large-scene route on one 7 x 600 x 600 scene, a noise scene and one
 7 x 6000 x 6000 scene; stage 1 (preprocess, uint8 and 16-bit DNs) into
 stage 2 (the feature graph, full width) on one 7 x 600 x 600 scene;
-forest predict and stage 4's metrics; and the tiled large-scene pipeline
-(supervised, streamed, KMeans, resumable) on 7 x 6000 x 6000 scenes.
+forest predict and stage 4's metrics; the tiled large-scene pipeline
+(supervised, streamed, KMeans, resumable) on 7 x 6000 x 6000 scenes; and
+the serving engine with its HTTP server on 7 x 600 x 600 requests.
 
 Phases, in order; any failed check raises and the script exits non-zero:
   1. the card (nvidia-smi name and power limit); build every CUDA kernel
@@ -122,8 +123,28 @@ Phases, in order; any failed check raises and the script exits non-zero:
      resumable drivers interrupted after 2 tiles or masks and resumed,
      equal to their uninterrupted runs; times (streamed first and warm,
      the resident route by passes, KMeans fit and assignment) and peak
-     device memory; then the card's line, the kernels' JSON line and the
-     result line.
+     device memory;
+ 19. serving (``serving.engine.InferenceEngine``, default ``EngineConfig``:
+     max_batch 8, buckets 1/2/4/8) with the supervised cell's forest on
+     the batch's 7 x 600 x 600 scenes: ``io.native`` loads and the host
+     stretch stats are timed at 600^2 and 6000^2 (native count and
+     ``np.bincount``); the stack's channels bit-equal at B = 8 and B = 1,
+     and the PCA Gram as a batched ``bmm`` against one product a scene;
+     ``warmup`` per method; for ``random_forest``
+     and ``rule_based`` every scene alone, 3 together (padded to 4) and 8
+     together, each map bit-equal to its scene's direct program at B = 1;
+     KMeans per-scene, shared-fit and warm-start engines equal to the
+     direct program; phase 12's noise scene rerouted once and equal to
+     ``rule_based_scenes_turbo``; a 20 480-leaf forest (past
+     ``GEMM_MAX_LEAVES``) through the fallback, equal to
+     ``hierarchical_stack_fused`` + ``forest_predict``; the launches of
+     each route (one supervised batch: ``lut_hist`` and ``forest_labels``
+     once each, and no plain version); HTTP on port 0 (``/healthz`` backend cuda, npy and
+     GeoTIFF round trips equal to the engine, ``/metrics``, the server's
+     decode, engine and encode ms); p50 and p90 of 8 concurrent requests
+     per method, engine against direct ms per scene and the host stats'
+     share; then the card's line, the kernels' JSON line and the result
+     line.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs no
 network and no arguments; the kernel build goes to
@@ -1999,6 +2020,411 @@ def large_scene_phases(dev, cfg, scenes, luts, gf, gf_cpu, rows) -> dict:
     return out
 
 
+SERVING_METHODS = ("random_forest", "kmeans", "rule_based")
+LATENCY_ROUNDS = 5
+
+
+def submit_together(eng, scenes, method):
+    """Futures of ``scenes`` submitted while holding the engine's lock, so
+    the dispatch thread finds the whole group pending when it wakes (the
+    group is then one batch, whatever the host's load)."""
+    with eng._lock:
+        return [eng.submit(s, method=method) for s in scenes]
+
+
+def results(futures, timeout: float = 300.0):
+    return [f.result(timeout=timeout) for f in futures]
+
+
+def concurrent_latency(eng, scenes, method, rounds: int = LATENCY_ROUNDS):
+    """Per-request seconds of ``rounds`` rounds of one request per scene
+    from as many client threads at once (a barrier releases them), each
+    round's wall seconds, and the engine's batch sizes meanwhile."""
+    import concurrent.futures as cf
+    import threading
+    before = dict(eng.stats()["batch_sizes"])
+    lat, walls = [], []
+    with cf.ThreadPoolExecutor(max_workers=len(scenes)) as pool:
+        for _ in range(rounds):
+            barrier = threading.Barrier(len(scenes))
+
+            def one(s):
+                barrier.wait(timeout=60)
+                t0 = time.perf_counter()
+                eng.classify(s, timeout=300, method=method)
+                return t0, time.perf_counter()
+
+            spans = list(pool.map(one, scenes))
+            lat += [t1 - t0 for t0, t1 in spans]
+            walls.append(max(t1 for _, t1 in spans)
+                         - min(t0 for t0, _ in spans))
+    after = eng.stats()["batch_sizes"]
+    sizes = {n: after[n] - before.get(n, 0) for n in after
+             if after[n] != before.get(n, 0)}
+    return lat, walls, sizes
+
+
+def stack_batch_invariance(dev, cfg, scenes_d, luts_d) -> dict:
+    """Which channels of the 19-channel stack differ, bit for bit, between
+    the batch's program (B = 8) and each scene's alone (B = 1), with the
+    largest difference: an op that changes its algorithm with the batch
+    size (a batched ``bmm`` did, for the PCA Gram) shows here as a channel
+    difference before any map does."""
+    from rs_image_segmentation_tpu_torch.pipeline import turbo
+    batch = turbo.hierarchical_stack_turbo_cm(scenes_d, luts_d, cfg,
+                                              device=dev)
+    diff = {}
+    for b in range(scenes_d.shape[0]):
+        one = turbo.hierarchical_stack_turbo_cm(scenes_d[b:b + 1],
+                                                luts_d[b:b + 1], cfg,
+                                                device=dev)[0]
+        for c in range(one.shape[0]):
+            d = float((one[c] - batch[b, c]).abs().max())
+            if not torch.equal(one[c], batch[b, c]):
+                diff[c] = max(diff.get(c, 0.0), d)
+    return diff
+
+
+def serving_phases(dev, cfg, scenes, flat_forest, depth, gf, stack0, smi,
+                   rows) -> dict:
+    """Phase 19: the serving engine (``serving.engine.InferenceEngine``,
+    default ``EngineConfig``) and its HTTP server on the card, with the
+    supervised cell's forest, at 7 x 600 x 600: warm-up, bucket padding
+    bit-exact per scene, the three KMeans modes, the rule overflow
+    reroute, the forest fallback past ``GEMM_MAX_LEAVES``, HTTP npy and
+    GeoTIFF round trips, launch counts, and latencies. Returns the
+    launches of one supervised and one rule batch, and the numbers."""
+    import tempfile
+    import threading
+    import urllib.request
+
+    from rs_image_segmentation_tpu_torch.core.types import GeoMeta
+    from rs_image_segmentation_tpu_torch.io import native, tiff
+    from rs_image_segmentation_tpu_torch.models.forest import (
+        GEMM_MAX_LEAVES, FlatForest, _gemm_for, flat_forest_from_numpy,
+        forest_predict, n_leaves)
+    from rs_image_segmentation_tpu_torch.ops.kernels import apply_u8_lut
+    from rs_image_segmentation_tpu_torch.pipeline import turbo
+    from rs_image_segmentation_tpu_torch.pipeline.features import (
+        hierarchical_stack_fused)
+    from rs_image_segmentation_tpu_torch.serving import client
+    from rs_image_segmentation_tpu_torch.serving.engine import (
+        EngineConfig, InferenceEngine)
+    from rs_image_segmentation_tpu_torch.serving.server import make_server
+    from rs_image_segmentation_tpu_torch.tools.fixtures import (
+        deep_forest_fields, stretch_stats_batch)
+    from rs_image_segmentation_tpu_torch.utils.timing import cuda_time_ms
+
+    out = {}
+    # ---- 19a. the native codec and the host statistics
+    check(native.available(), "io.native builds and loads (g++ on the host)")
+    big = reflected_tiling(scenes[0], LARGE)[None]
+    stats_s = {}
+    for route in ("np.bincount", "native", "np.bincount ", "native "):
+        # the parent's count (np.bincount: the route build_stretch_stats
+        # takes without the library) and the native one, in turns
+        real = native.hist_u8
+        if route.startswith("np"):
+            native.hist_u8 = lambda arr: None
+        try:
+            for label, sc in (("batch", scenes), ("large", big)):
+                t0 = time.perf_counter()
+                got = stretch_stats_batch(sc)
+                stats_s.setdefault(label, {}).setdefault(
+                    route.strip(), []).append(time.perf_counter() - t0)
+                if label == "batch":
+                    luts, params, hists = got
+        finally:
+            native.hist_u8 = real
+    stats_ms = min(stats_s["batch"]["native"]) * 1e3
+    print(f"serving: native codec {native.library_path().name}; host "
+          f"stretch stats, s per {BATCH} x 7 x {HEIGHT} x {WIDTH} batch and "
+          f"per 7 x {LARGE} x {LARGE} scene, by count route: {stats_s}; "
+          f"{smi}", flush=True)
+    out["host_stats_s"] = stats_s
+
+    # ---- 19b. the stack's batch invariance, channel by channel
+    scenes_d = torch.from_numpy(scenes).to(dev)
+    luts_d = torch.from_numpy(luts).to(dev)
+    inv = stack_batch_invariance(dev, cfg, scenes_d, luts_d)
+    check(not inv, f"the stack's channels are bit-equal at B = {BATCH} and "
+          f"B = 1 (channel: max abs diff): {inv}")
+    # the PCA Gram, a batched bmm against one product a scene (the
+    # stack's form): the bmm's sums change with the batch size
+    x = scenes_d.float().reshape(BATCH, BANDS, -1)
+    bmm8 = torch.bmm(x, x.transpose(1, 2))
+    bmm1 = torch.cat([torch.bmm(x[i:i + 1], x[i:i + 1].transpose(1, 2))
+                      for i in range(BATCH)])
+    gram_ms = {
+        "bmm": cuda_time_ms(lambda: torch.bmm(x, x.transpose(1, 2)), 20),
+        "mm_per_scene": cuda_time_ms(
+            lambda: torch.stack([f @ f.T for f in x]), 20)}
+    # the PCA mean's sum over (B, 7, 256) rows, and the eigh of the Grams,
+    # batched against one scene at a time
+    rows3 = torch.rand((BATCH, BANDS, 256), generator=torch.Generator()
+                       .manual_seed(SEED)).to(dev)
+    sum_equal = torch.equal(torch.sum(rows3, dim=-1),
+                            torch.stack([torch.sum(r, dim=-1)
+                                         for r in rows3]))
+    grams = torch.stack([f @ f.T for f in x]) / x.shape[-1]
+    vals8, vecs8 = torch.linalg.eigh(grams)
+    ones = [torch.linalg.eigh(gm[None]) for gm in grams]
+    eigh_equal = (torch.equal(vals8, torch.cat([o[0] for o in ones]))
+                  and torch.equal(vecs8, torch.cat([o[1] for o in ones])))
+    out["batch_equal"] = {"gram_bmm": torch.equal(bmm8, bmm1),
+                          "row_sum": sum_equal, "eigh": eigh_equal}
+    print(f"serving: the stack's channels are bit-equal at B = {BATCH} and "
+          f"B = 1; batched against one scene at a time, equal: "
+          f"{out['batch_equal']} (the Gram as one bmm differs by "
+          f"{float((bmm8 - bmm1).abs().max())}); device ms of the {BATCH} "
+          f"Grams {gram_ms}; {smi}", flush=True)
+    out["gram_ms"] = gram_ms
+
+    eng = InferenceEngine(flat_forest, depth, cfg=cfg, device=dev)
+    check(eng.device == dev and eng.stats()["gemm_forest"],
+          "the engine runs on the card with the GEMM forest")
+    # ---- 19c. warm-up, per method
+    warm_s = {}
+    for m in SERVING_METHODS:
+        t0 = time.perf_counter()
+        eng.warmup([(HEIGHT, WIDTH)], methods=[m])
+        torch.cuda.synchronize()
+        warm_s[m] = time.perf_counter() - t0
+    print(f"serving: warmup(({HEIGHT}, {WIDTH})) seconds by method "
+          f"{warm_s}", flush=True)
+    out["warmup_s"] = warm_s
+
+    # ---- 19d. bucket padding, bit for bit against B = 1
+    def direct(m, i, **kw):
+        args = (scenes[i:i + 1], luts[i:i + 1])
+        sk = dict(stretch_params=params[i:i + 1],
+                  stretch_hists=hists[i:i + 1], device=dev)
+        if m == "random_forest":
+            got = turbo.classify_scenes_turbo(*args, gf, cfg, **sk)
+        elif m == "rule_based":
+            got = turbo.rule_based_scenes_turbo_batch(*args, cfg, **sk)
+        else:
+            got = turbo.kmeans_scenes_turbo_batch(
+                *args, KMEANS_K, cfg, KMEANS_SEED, KMEANS_STRIDE, **sk, **kw)
+        return got[0].cpu().numpy()
+
+    for m in ("random_forest", "rule_based"):
+        want = [direct(m, i) for i in range(BATCH)]
+        before = eng.stats()
+        alone = [eng.classify(s, timeout=300, method=m) for s in scenes]
+        three = results(submit_together(eng, scenes[:3], m))
+        eight = results(submit_together(eng, scenes, m))
+        after = eng.stats()
+        grown = {n: after["batch_sizes"].get(n, 0)
+                 - before["batch_sizes"].get(n, 0) for n in (1, 3, BATCH)}
+        check(grown == {1: BATCH, 3: 1, BATCH: 1}
+              and after["padded_scenes"] - before["padded_scenes"] == 1,
+              f"{m}: {BATCH} batches of 1, one of 3 padded to 4, one of "
+              f"{BATCH}: {grown}, padded {after['padded_scenes']}")
+        bad = [(label, i) for label, got in (("alone", alone),
+                                             ("3 -> 4", three),
+                                             ("8", eight))
+               for i, g in enumerate(got)
+               if g.shape != (HEIGHT, WIDTH) or g.dtype != np.uint8
+               or not np.array_equal(g, want[i])]
+        check(not bad, f"{m}: every map bit-equal to its scene's direct "
+              f"program at B = 1 (buckets 1, 4, 8); differ: {bad}")
+        print(f"serving [{m}]: buckets 1, 4 (3 padded) and 8 bit-equal to "
+              f"B = 1 on all {BATCH} scenes", flush=True)
+
+    # ---- 19e. KMeans: per-scene fits, shared fit, warm start
+    launches = {}
+    eight, launches["kmeans"] = counted(
+        lambda: results(submit_together(eng, scenes, "kmeans")))
+    bad = [i for i in range(BATCH)
+           if not np.array_equal(eight[i], direct("kmeans", i))]
+    check(not bad, f"KMeans per-scene fits equal the direct program at "
+          f"B = 1: differ {bad}")
+    sk = dict(stretch_params=params, stretch_hists=hists, shared_fit=True,
+              return_cents=True, device=dev)
+    kargs = (scenes, luts, KMEANS_K, cfg, KMEANS_SEED, KMEANS_STRIDE)
+    with InferenceEngine(cfg=cfg, method="kmeans", device=dev,
+                         engine_cfg=EngineConfig(kmeans_shared_fit=True)
+                         ) as shared_eng:
+        shared = results(submit_together(shared_eng, scenes, "kmeans"))
+    want, cents = turbo.kmeans_scenes_turbo_batch(*kargs, **sk)
+    want = want.cpu().numpy()
+    check(all(np.array_equal(shared[i], want[i]) for i in range(BATCH)),
+          "KMeans shared fit equals the direct shared-fit batch")
+    with InferenceEngine(cfg=cfg, method="kmeans", device=dev,
+                         engine_cfg=EngineConfig(kmeans_shared_fit=True,
+                                                 kmeans_warm_start=True)
+                         ) as warm_eng:
+        first = results(submit_together(warm_eng, scenes, "kmeans"))
+        second = results(submit_together(warm_eng, scenes, "kmeans"))
+    want2, _ = turbo.kmeans_scenes_turbo_batch(*kargs, **sk,
+                                               init_cents=cents)
+    want2 = want2.cpu().numpy()
+    check(all(np.array_equal(first[i], want[i])
+              and np.array_equal(second[i], want2[i])
+              for i in range(BATCH)),
+          "KMeans warm start equals the direct chain (init_cents)")
+    print("serving [kmeans]: per-scene fits, the shared fit and the warm "
+          "start each bit-equal to the direct program", flush=True)
+
+    # ---- 19f. the rule overflow reroute on the noise scene
+    noise = np.random.default_rng(SEED + 3).integers(
+        0, 256, (1, BANDS, HEIGHT, WIDTH), dtype=np.uint8)
+    noise_lut = stretch_stats_batch(noise)[0]
+    before = eng.stats()["rule_overflow_reroutes"]
+    got, launches["rule_based, rerouted"] = counted(
+        lambda: eng.classify(noise[0], timeout=600, method="rule_based"))
+    reroutes = eng.stats()["rule_overflow_reroutes"] - before
+    want = turbo.rule_based_scenes_turbo(noise[0], noise_lut[0], cfg,
+                                         device=dev).cpu().numpy()
+    check(reroutes == 1 and np.array_equal(got, want),
+          f"the noise scene is rerouted once ({reroutes}) and equals "
+          f"rule_based_scenes_turbo")
+    print("serving [rule_based]: the noise scene rerouted "
+          f"({reroutes}), equal to rule_based_scenes_turbo", flush=True)
+
+    # ---- 19g. the forest fallback past GEMM_MAX_LEAVES
+    deep = flat_forest_from_numpy(deep_forest_fields(stack0))
+    leaves = n_leaves(deep)
+    check(leaves > GEMM_MAX_LEAVES and _gemm_for(deep, 19) is None,
+          f"the deep forest ({leaves} leaves) is past the cap")
+    with InferenceEngine(deep, 12, cfg=cfg, device=dev) as deep_eng:
+        check(deep_eng.stats()["gemm_forest"] is False,
+              "the fallback engine has no GEMM forest")
+        t0 = time.perf_counter()
+        fb, launches["random_forest, fallback"] = counted(
+            lambda: results(submit_together(deep_eng, scenes[:2],
+                                            "random_forest")))
+        fb_s = time.perf_counter() - t0
+        fb_sizes = deep_eng.stats()["batch_sizes"]
+    deep_d = FlatForest(*(t.to(dev) for t in deep))
+    for i in range(2):
+        pre = apply_u8_lut(scenes_d[i], luts_d[i])
+        st = hierarchical_stack_fused(pre.float(), cfg, device=dev)
+        want = forest_predict(deep_d, st.reshape(-1, 19), 12).reshape(
+            HEIGHT, WIDTH).to(torch.uint8).cpu().numpy()
+        check(np.array_equal(fb[i], want) and len(np.unique(want)) > 1,
+              f"fallback scene {i} equals hierarchical_stack_fused + "
+              f"forest_predict on the card")
+    print(f"serving [fallback]: {leaves} leaves, 2 scenes unpadded "
+          f"({fb_sizes}) in {fb_s:.3f} s, bit-equal to the direct route",
+          flush=True)
+    out["fallback_s_2_scenes"] = fb_s
+
+    # ---- 19h. launches of one supervised and one rule batch
+    for m in ("random_forest", "rule_based"):
+        (maps, plain), launches[m] = counted(lambda: plain_calls(
+            lambda: results(submit_together(eng, scenes, m))))
+        check(not any(plain.values()), f"{m}: no plain version ran: {plain}")
+    rf = launches["random_forest"]
+    check(rf["lut_hist"] == 1 and rf["forest_labels"] == 1
+          and all(n == 0 for k, n in rf.items()
+                  if k not in ("lut_hist", "forest_labels")),
+          f"a supervised batch launches lut_hist and forest_labels once: "
+          f"{rf}")
+    check(launches["random_forest, fallback"]["forest_labels"] == 0
+          and launches["rule_based, rerouted"]["cc_labels"] > 0,
+          f"the fallback walks the trees without the forest kernel, and the "
+          f"reroute labels components with cc_labels: {launches}")
+    print(f"serving: launches of one {BATCH}-scene batch (KMeans: {BATCH} "
+          f"single-scene programs), of the rerouted noise scene and of 2 "
+          f"scenes through the fallback: {launches}", flush=True)
+
+    # ---- 19i. HTTP: healthz, npy and GeoTIFF round trips, metrics
+    httpd = make_server(eng, "127.0.0.1", 0)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    base = "http://%s:%d" % httpd.server_address[:2]
+    try:
+        hz = client.healthz(base)
+        check(hz["ok"] and hz["backend"] == "cuda",
+              f"/healthz reports the card: {hz}")
+        ref = eng.classify(scenes[0], timeout=300)
+        with client.ServingSession(base) as sess:
+            for _ in range(3):
+                got = sess.classify_array(scenes[0])
+            npy_timing = sess.last_timing
+        check(np.array_equal(got, ref), "npy round trip equals the engine")
+        meta = GeoMeta(transform=(30.0, 0.0, 500000.0, 0.0, -30.0,
+                                  4000000.0), crs="EPSG:32650")
+        with tempfile.TemporaryDirectory() as tmp:
+            src = os.path.join(tmp, "scene.tif")
+            tiff.write_tiff(src, scenes[0], meta)
+            with open(src, "rb") as f:
+                body = f.read()
+            for _ in range(3):
+                req = urllib.request.Request(
+                    f"{base}/v1/classify", data=body, method="POST",
+                    headers={"Content-Type": "image/tiff"})
+                with urllib.request.urlopen(req, timeout=300) as resp:
+                    payload = resp.read()
+                    tif_timing = {k: float(resp.headers[h]) for k, h in (
+                        ("decode_ms", "X-Decode-Ms"),
+                        ("engine_ms", "X-Engine-Ms"),
+                        ("encode_ms", "X-Encode-Ms"))}
+            dst = os.path.join(tmp, "map.tif")
+            with open(dst, "wb") as f:
+                f.write(payload)
+            arr, info = tiff.read_tiff(dst)
+        check(np.array_equal(arr[0], ref) and info.meta.crs == meta.crs
+              and info.meta.transform == meta.transform,
+              "GeoTIFF round trip equals the engine, geo metadata kept")
+        with urllib.request.urlopen(f"{base}/metrics", timeout=60) as r:
+            metrics = r.read().decode()
+        check(f"rsseg_requests_total {eng.stats()['requests']}" in metrics,
+              "/metrics counts the requests")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=30)
+    print(f"serving HTTP: healthz {hz}; npy decode/engine/encode ms "
+          f"{npy_timing}; GeoTIFF {tif_timing}; {smi}", flush=True)
+    out["http_npy_ms"] = npy_timing
+    out["http_tiff_ms"] = tif_timing
+
+    # ---- 19j. latency of 8 concurrent requests, engine against direct
+    direct_ms = {}
+    sp_d = torch.from_numpy(params).to(dev)
+    hh_d = torch.from_numpy(hists).to(dev)
+    programs = {
+        "random_forest": lambda: turbo.classify_scenes_turbo(
+            scenes_d, luts_d, gf, cfg, stretch_params=sp_d,
+            stretch_hists=hh_d, device=dev),
+        "rule_based": lambda: turbo.rule_based_scenes_turbo_batch(
+            scenes_d, luts_d, cfg, stretch_params=sp_d, stretch_hists=hh_d,
+            device=dev),
+        "kmeans": lambda: [turbo.kmeans_scenes_turbo_batch(
+            scenes_d[i:i + 1], luts_d[i:i + 1], KMEANS_K, cfg, KMEANS_SEED,
+            KMEANS_STRIDE, stretch_params=sp_d[i:i + 1],
+            stretch_hists=hh_d[i:i + 1], device=dev) for i in range(BATCH)]}
+    lat_out = {}
+    for m in SERVING_METHODS:
+        lat, walls, sizes = concurrent_latency(eng, list(scenes), m)
+        direct_s, _ = wall_s(programs[m])
+        direct_ms[m] = direct_s * 1e3 / BATCH
+        engine_ms = statistics.median(walls) * 1e3 / BATCH
+        p50, p90 = np.percentile(lat, (50, 90)) * 1e3
+        lat_out[m] = {"p50_ms": float(p50), "p90_ms": float(p90),
+                      "engine_ms_per_scene": engine_ms,
+                      "direct_ms_per_scene": direct_ms[m],
+                      "host_stats_share": stats_ms / BATCH / engine_ms,
+                      "batch_sizes": sizes}
+        print(f"serving latency [{m}], {BATCH} concurrent {HEIGHT} x "
+              f"{WIDTH} requests x {LATENCY_ROUNDS} rounds: p50 {lat_out[m]['p50_ms']:.3f} ms, "
+              f"p90 {lat_out[m]['p90_ms']:.3f} ms; engine "
+              f"{engine_ms:.3f} ms per scene against the direct program's "
+              f"{direct_ms[m]:.3f} (inputs resident); host stretch stats "
+              f"{stats_ms / BATCH:.3f} ms per scene "
+              f"({lat_out[m]['host_stats_share']:.3f} of the engine's); "
+              f"batch sizes {sizes}; {smi}", flush=True)
+    out["latency"] = lat_out
+    eng.shutdown()
+    for row in rows:
+        row["launches_serving"] = {m: launches[m].get(row["name"], 0)
+                                   for m in launches}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2293,6 +2719,9 @@ def main() -> int:
         dev, stack0, flat_forest, depth, labels[0])
     large = large_scene_phases(dev, cfg, scenes, luts, gf, gf_cpu, rows)
     print(json.dumps({"large_scene": large}))
+    serving = serving_phases(dev, cfg, scenes, flat_forest, depth, gf,
+                             stack0, smi, rows)
+    print(json.dumps({"serving": serving}))
     print(f"chip_smoke: every check passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(smi)

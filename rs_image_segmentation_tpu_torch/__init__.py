@@ -27,7 +27,12 @@ Ported so far:
   resumable forms, ``kmeans_large_scene`` and the resumable KMeans and
   rule drivers; CUDA kernels ``lut_hist``, ``forest_labels`` and
   ``cc_labels``), with host-to-device tile streaming from pinned memory
-  (``io.stream``).
+  (``io.stream``);
+* serving, ``serving.engine.InferenceEngine`` (dynamic batching of the
+  three turbo programs on the card) behind ``serving.server``'s HTTP API,
+  with ``serving.client``; the (Geo)TIFF codec ``io.tiff`` with its native
+  binding ``io.native``, ``models.serialize`` (the JAX package's npz
+  formats), ``core.types.GeoMeta`` and ``utils.log``.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
 no CUDA device and no explicit device they raise (``backend.py``).

@@ -235,15 +235,32 @@ _GEMM_CACHE: dict = {}
 GEMM_MAX_LEAVES = 16384
 
 
+def n_leaves(forest: FlatForest) -> int:
+    """Leaves reachable from the trees' roots, counted level by level
+    (leaves loop on themselves; padding nodes are never reached)."""
+    left = forest.left.cpu().numpy()
+    right = forest.right.cpu().numpy()
+    trees = np.arange(left.shape[0])
+    nodes = np.zeros_like(trees)
+    count = 0
+    while trees.size:
+        lft, rgt = left[trees, nodes], right[trees, nodes]
+        leaf = lft == nodes
+        count += int(leaf.sum())
+        trees = np.repeat(trees[~leaf], 2)
+        nodes = np.stack([lft[~leaf], rgt[~leaf]], axis=1).reshape(-1)
+    return count
+
+
 def _gemm_for(forest: FlatForest, n_features: int) -> Optional[GemmForest]:
     """The cached GemmForest of ``forest``, or None when its leaf count
-    exceeds GEMM_MAX_LEAVES."""
+    exceeds GEMM_MAX_LEAVES (counted first: past the cap the (M, L) path
+    matrix, a GiB or more, is never built)."""
     key = (id(forest.feature), n_features)
     if key in _GEMM_CACHE:
         return _GEMM_CACHE[key][1]
-    gf = forest_to_gemm(forest, n_features)
-    if gf.path.shape[1] > GEMM_MAX_LEAVES:
-        gf = None
+    gf = (forest_to_gemm(forest, n_features)
+          if n_leaves(forest) <= GEMM_MAX_LEAVES else None)
     # keep a strong reference to the keyed buffer: id() of a collected
     # tensor can be recycled, which would silently serve the wrong forest
     _GEMM_CACHE[key] = (forest.feature, gf)

@@ -26,6 +26,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable
@@ -40,6 +41,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 NO_FMA = ("stretch_indices", "glcm")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -99,12 +101,16 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library for ``csrc/<name>.cu``, built on first use.
+    Safe from several threads at once (a serving engine's dispatch thread
+    and a warm-up in its caller's): one of them builds, the others wait."""
     lib = _LIBS.get(name)
     if lib is None:
-        target = library_path(name)
-        if not target.exists():
-            build([name])
-        lib = ctypes.CDLL(str(target))
-        _LIBS[name] = lib
+        with _LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                target = library_path(name)
+                if not target.exists():
+                    build([name])
+                lib = _LIBS[name] = ctypes.CDLL(str(target))
     return lib

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Dict, Tuple
 
 import numpy as np
@@ -426,6 +427,7 @@ def pack_forest(gf) -> Dict[str, np.ndarray]:
 
 _KERNEL_FOREST = ("records", "leaf_table", "roots", "depths", "classes")
 _PACKED: Dict[Tuple[int, str], tuple] = {}
+_PACKED_LOCK = threading.Lock()
 
 
 def _packed_on(gf, device: torch.device) -> Tuple[Dict[str, torch.Tensor],
@@ -436,12 +438,16 @@ def _packed_on(gf, device: torch.device) -> Tuple[Dict[str, torch.Tensor],
     key = (id(gf.path), str(device))
     hit = _PACKED.get(key)
     if hit is None:
-        packed = pack_forest(gf)
-        packed = {k: torch.from_numpy(packed[k]).to(device)
-                  for k in _KERNEL_FOREST}
-        # a strong reference to the keyed buffer: a recycled id() of a
-        # collected tensor would otherwise serve the wrong forest
-        hit = _PACKED[key] = (gf.path, packed, float(gf.inv_trees))
+        with _PACKED_LOCK:      # a dispatch thread and a warm-up may race
+            hit = _PACKED.get(key)
+            if hit is None:
+                packed = pack_forest(gf)
+                packed = {k: torch.from_numpy(packed[k]).to(device)
+                          for k in _KERNEL_FOREST}
+                # a strong reference to the keyed buffer: a recycled id()
+                # of a collected tensor would otherwise serve the wrong
+                # forest
+                hit = _PACKED[key] = (gf.path, packed, float(gf.inv_trees))
     return hit[1], hit[2]
 
 

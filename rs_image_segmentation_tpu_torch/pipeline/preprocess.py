@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..backend import DeviceLike, as_tensor, resolve_device
+from ..io import native as _native
 from ..ops.kernels import apply_u8_lut, fused_calibrate_stretch
 from ..ops.normalize import minmax_stretch_u8
 from ..ops.resize import warp_affine_bilinear
@@ -192,11 +193,15 @@ def build_stretch_stats(arr_u8: np.ndarray, gains, biases):
     """``(lut, params, hist_stretched)``: :func:`build_stretch_params` plus
     the exact (C, 256) int32 histogram of the stretched scene — the raw-DN
     bincount pushed through the LUT (the LUT is a per-DN function, so this
-    equals histogramming the stretched image)."""
+    equals histogramming the stretched image). Each band is counted by
+    ``io.native.hist_u8`` (the C++ codec library), and by ``np.bincount``
+    where that library cannot be built."""
     lut, params = build_stretch_params(arr_u8, gains, biases)
     c = arr_u8.shape[0]
     hist = np.zeros((c, 256), np.int64)
     for i in range(c):
-        hist_raw = np.bincount(arr_u8[i].reshape(-1), minlength=256)
+        hist_raw = _native.hist_u8(arr_u8[i])
+        if hist_raw is None:
+            hist_raw = np.bincount(arr_u8[i].reshape(-1), minlength=256)
         np.add.at(hist[i], lut[i].astype(np.int64), hist_raw)
     return lut, params, hist.astype(np.int32)

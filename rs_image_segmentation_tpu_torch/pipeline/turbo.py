@@ -123,10 +123,16 @@ def _stack_cm_from_parts(stretched_f32: torch.Tensor, hist: torch.Tensor,
     scale = torch.where(iqr > 0, iqr, 1.0)
     xs = (bands01 - q[1][..., None, None]) / scale[..., None, None]
     xs_vals = (norm_vals - q[1][..., None]) / scale[..., None]
-    mean = torch.sum(hist.to(torch.float32) * xs_vals, dim=-1) / n  # (B, 7)
+    # the mean and the Gram one scene at a time, so a scene's PC1 does not
+    # depend on its batch: on an H100 the reduction kernel splits a row by
+    # how many rows the call holds (one sum over the (B, 7, 256) products
+    # moved the mean by an ulp between B = 8 and B = 1), and cuBLAS picks
+    # a batched product's reduction split by the batch size
+    prod = hist.to(torch.float32) * xs_vals
+    mean = torch.stack([torch.sum(p_s, dim=-1) for p_s in prod]) / n  # (B, 7)
     xc = xs - mean[..., None, None]
     flat = xc.reshape(b, c, n)
-    cov = torch.bmm(flat, flat.transpose(1, 2)) / (n - 1)
+    cov = torch.stack([f @ f.T for f in flat]) / (n - 1)
     eigvals, eigvecs = torch.linalg.eigh(cov)
     top = torch.argmax(eigvals, dim=-1)                      # (B,)
     comp0 = torch.gather(eigvecs, 2, top[:, None, None].expand(b, c, 1))[..., 0]

@@ -142,3 +142,37 @@ def rule_forest(stack: np.ndarray):
         if plan is not None:
             return gf, plan, n, depth, forest
     raise RuntimeError("no sample count gave a forest with a tree plan")
+
+
+
+def deep_forest_fields(stack: np.ndarray, depth: int = 12, n_trees: int = 5,
+                       n_classes: int = 4, seed: int = 0) -> dict:
+    """Numpy ``FlatForest`` fields (``flat_forest_from_numpy``) of
+    ``n_trees`` complete trees of ``depth`` levels, 2**depth leaves each:
+    at the defaults 20 480 leaves, past ``GEMM_MAX_LEAVES``, so inference
+    takes the level traversal. Each internal node splits a random feature
+    at a uniform draw between that feature's 1st and 99th percentiles
+    over the (F, H, W) ``stack`` (a continuous draw: no pixel's value sits
+    on a threshold, so a rounding step of a feature flips no split); each
+    leaf holds a random class distribution (classes 1..n_classes). The
+    JAX package's ``FlatForest`` takes the same arrays."""
+    rng = np.random.default_rng(seed)
+    lo, hi = np.percentile(stack.reshape(stack.shape[0], -1), (1, 99),
+                           axis=1)
+    n_nodes = 2 ** (depth + 1) - 1
+    node = np.arange(n_nodes, dtype=np.int32)
+    inner = node < 2 ** depth - 1
+    feature = np.where(inner, rng.integers(0, stack.shape[0],
+                                           (n_trees, n_nodes)), 0)
+    u = rng.random((n_trees, n_nodes))
+    threshold = np.where(inner, lo[feature] + u * (hi - lo)[feature], np.inf)
+    left = np.broadcast_to(np.where(inner, 2 * node + 1, node),
+                           (n_trees, n_nodes))
+    right = np.broadcast_to(np.where(inner, 2 * node + 2, node),
+                            (n_trees, n_nodes))
+    return {"feature": feature.astype(np.int32),
+            "threshold": threshold.astype(np.float32),
+            "left": left.astype(np.int32), "right": right.astype(np.int32),
+            "leaf_proba": rng.dirichlet(np.ones(n_classes), (n_trees, n_nodes)
+                                        ).astype(np.float32),
+            "classes": np.arange(1, n_classes + 1, dtype=np.int32)}
