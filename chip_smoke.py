@@ -6,8 +6,10 @@ large-scene route on one 7 x 600 x 600 scene, a noise scene and one
 7 x 6000 x 6000 scene; stage 1 (preprocess, uint8 and 16-bit DNs) into
 stage 2 (the feature graph, full width) on one 7 x 600 x 600 scene;
 forest predict and stage 4's metrics; the tiled large-scene pipeline
-(supervised, streamed, KMeans, resumable) on 7 x 6000 x 6000 scenes; and
-the serving engine with its HTTP server on 7 x 600 x 600 requests.
+(supervised, streamed, KMeans, resumable) on 7 x 6000 x 6000 scenes;
+the serving engine with its HTTP server on 7 x 600 x 600 requests; and
+the four-stage file pipeline (GeoTIFF -> stage 1 -> stage 2 artifacts ->
+stage 3 maps -> stage 4 report) on one 7 x 600 x 600 scene.
 
 Phases, in order; any failed check raises and the script exits non-zero:
   1. the card (nvidia-smi name and power limit); build every CUDA kernel
@@ -143,8 +145,33 @@ Phases, in order; any failed check raises and the script exits non-zero:
      GeoTIFF round trips equal to the engine, ``/metrics``, the server's
      decode, engine and encode ms); p50 and p90 of 8 concurrent requests
      per method, engine against direct ms per scene and the host stats'
-     share; then the card's line, the kernels' JSON line and the result
-     line.
+     share;
+ 20. the four-stage file pipeline on scene 0 written as a GeoTIFF with
+     ``synthetic_geometa``: stage 1 (``run_preprocessing_stage``) at the
+     identity and with three GCP pairs of a small rotation plus shift;
+     stage 2 (``run_feature_extraction_stage``, full width, no plots);
+     stage 3 (``classify_and_write``: ``rule_based``, ``kmeans`` and
+     ``random_forest`` on a labelled-ROI GeoTIFF sampled from the rule
+     map, 200 pixels a class; the rule map's three-class GeoTIFF read back
+     equal to ``create_three_class_map``); stage 4
+     (``ClassificationEvaluator.evaluate_and_report``, the rule map
+     against the ROI, which scores 1.0 since the ROI is its sample, and
+     the KMeans map with its clusters mapped). Launch counts around each
+     driver (stage 1 at the identity: none; with GCPs:
+     ``fused_calibrate_stretch`` once; stage 2: ``fused_spectral_indices``
+     and ``glcm_grid`` once each; rule_based: ``cc_labels`` four times;
+     random_forest: ``forest_labels`` once; KMeans and stage 4: none) and
+     no plain version of any kernel, counted in every module of the port;
+     the forest's map equal to ``gemm_labels_cm`` of the same forest on
+     the card; the other drivers with ``device="cpu"`` (stage-1 file
+     byte-equal at the identity, the GCP route >= 99.9 % and within one
+     level, stage-2 arrays within the CPU tests' bounds, the rule map
+     >= 99.9 %, KMeans mapped kappa within 0.002 as in phase 16, stage-4
+     metrics and report equal); each driver's host wall time
+     (median of 3 after a warm-up) and the artifacts' sizes; it prints a
+     ``{"file_pipeline": ...}`` line. The plots of stages 3 and 4 are not
+     drawn: the card's machine has no matplotlib;
+ then the card's line, the kernels' JSON line and the result line.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs no
 network and no arguments; the kernel build goes to
@@ -1628,12 +1655,16 @@ def peak_gb(fn):
     return out, (torch.cuda.max_memory_allocated() - base) / 1e9
 
 
-PLAIN_FUNCTIONS = ("lut_hist_plain", "apply_u8_lut", "gemm_labels_cm")
+# the plain versions of the nine kernels (``ops.kernels``)
+PLAIN_FUNCTIONS = ("lut_hist_plain", "gemm_labels_cm", "ccmin_prop_plain",
+                   "hist_dense_plain", "keep_lut_plain", "cc_labels_plain",
+                   "glcm_grid_plain", "fused_spectral_indices_plain",
+                   "fused_calibrate_stretch_plain")
 
 
 def plain_calls(run):
-    """``run()``, and how often it called each of the kernels' plain
-    versions (``PLAIN_FUNCTIONS`` of ``ops.kernels``)."""
+    """``run()``, and how often it called each of ``PLAIN_FUNCTIONS``
+    through any module of the port that binds it."""
     from rs_image_segmentation_tpu_torch.ops import kernels
     calls = dict.fromkeys(PLAIN_FUNCTIONS, 0)
     real = {n: getattr(kernels, n) for n in PLAIN_FUNCTIONS}
@@ -1644,13 +1675,17 @@ def plain_calls(run):
             return real[name](*args, **kwargs)
         return call
 
-    for n in PLAIN_FUNCTIONS:
-        setattr(kernels, n, spy(n))
+    patched = [(mod, n) for mod in list(sys.modules.values())
+               if getattr(mod, "__name__", "").startswith(
+                   "rs_image_segmentation_tpu_torch")
+               for n, f in real.items() if getattr(mod, n, None) is f]
+    for mod, n in patched:
+        setattr(mod, n, spy(n))
     try:
         out = run()
     finally:
-        for n, f in real.items():
-            setattr(kernels, n, f)
+        for mod, n in patched:
+            setattr(mod, n, real[n])
     return out, calls
 
 
@@ -2425,6 +2460,285 @@ def serving_phases(dev, cfg, scenes, flat_forest, depth, gf, stack0, smi,
     return out
 
 
+ROI_PER_CLASS = 200                # labelled pixels a class of the rule map
+# each driver's kernels and how often it must launch each; every other
+# kernel, never. The rule classifier labels four masks' components.
+FILE_LAUNCHES = {
+    "stage1_identity": {},
+    "stage1_gcps": {"fused_calibrate_stretch": 1},
+    "stage2": {"fused_spectral_indices": 1, "glcm_grid": 1},
+    "stage3_rule_based": {"cc_labels": 4},
+    "stage3_kmeans": {},
+    "stage3_random_forest": {"forest_labels": 1},
+    "stage4": {},
+    "stage4_kmeans": {},
+}
+
+
+def file_gcps(h: int, w: int) -> list:
+    """Three GCP pairs of a 0.01 rad rotation plus a (1.5, -2) shift, at
+    three corners of an h x w scene."""
+    rot = np.array([[np.cos(0.01), -np.sin(0.01)],
+                    [np.sin(0.01), np.cos(0.01)]])
+    return [((x, y), tuple(rot @ (x, y) + (1.5, -2.0)))
+            for x, y in ((0.0, 0.0), (w - 1.0, 5.0), (5.0, h - 1.0))]
+
+
+def file_sizes(root: str) -> dict:
+    """Bytes of every file under ``root``, by path relative to it."""
+    return {os.path.relpath(os.path.join(d, f), root):
+            os.path.getsize(os.path.join(d, f))
+            for d, _, files in os.walk(root) for f in sorted(files)}
+
+
+def file_pipeline_phase(scene0: np.ndarray, dev, smi: str, rows) -> dict:
+    """Phase 20: the four-stage file pipeline on scene 0 written as a
+    GeoTIFF, the drivers a user runs (``run_preprocessing_stage`` at the
+    identity and with GCPs, ``run_feature_extraction_stage``, and the
+    compute-and-write parts of stages 3 and 4, ``classify_and_write`` per
+    method and ``ClassificationEvaluator.evaluate_and_report``: the
+    card's machine has no matplotlib for the PNGs): launch counts and
+    plain calls around each driver, card against the CPU (the forest's
+    map against ``gemm_labels_cm`` of the same forest on the card), host
+    wall times and artifact sizes. Adds each kernel's launches to its
+    row."""
+    import filecmp
+    import shutil
+    import tempfile
+
+    from rs_image_segmentation_tpu_torch.io.artifacts import (
+        load_features, normalize_features_structure)
+    from rs_image_segmentation_tpu_torch.io.tiff import read_tiff, write_tiff
+    from rs_image_segmentation_tpu_torch.models.forest import forest_to_gemm
+    from rs_image_segmentation_tpu_torch.ops.kernels import gemm_labels_cm
+    from rs_image_segmentation_tpu_torch.pipeline import (
+        classify, evaluate, features, preprocess)
+    from rs_image_segmentation_tpu_torch.tools.fixtures import (
+        synthetic_geometa)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_files_")
+    try:
+        h, w = scene0.shape[1:]
+        raw = os.path.join(tmp, "scene0.tif")
+        write_tiff(raw, scene0, synthetic_geometa((h, w)))
+        roots = {"card": os.path.join(tmp, "card"),
+                 "cpu": os.path.join(tmp, "cpu")}
+        devs = {"card": dev, "cpu": "cpu"}
+
+        def at(side, *parts):
+            return os.path.join(roots[side], *parts)
+
+        pkl = at("card", "features", "all_features_and_metadata.pkl")
+        roi_path = os.path.join(tmp, "labeled_roi.tif")
+        drivers = {
+            "stage1_identity": lambda side="card":
+                preprocess.run_preprocessing_stage(
+                    raw, at(side, "stage1_identity.tif"), device=devs[side]),
+            "stage1_gcps": lambda side="card":
+                preprocess.run_preprocessing_stage(
+                    raw, at(side, "stage1_gcps.tif"), gcps=file_gcps(h, w),
+                    device=devs[side]),
+            # both sides read the card's artifact of the stage before
+            "stage2": lambda side="card":
+                features.run_feature_extraction_stage(
+                    at("card", "stage1_identity.tif"), at(side, "features"),
+                    vis=False, device=devs[side]),
+            **{f"stage3_{m}": (lambda side="card", m=m:
+                               classify.classify_and_write(
+                                   pkl, m, at(side, "classes"),
+                                   labeled_roi_file=roi_path,
+                                   device=devs[side])[0])
+               for m in ("rule_based", "kmeans", "random_forest")},
+            **{name: (lambda side="card", m=m, name=name:
+                      evaluate.ClassificationEvaluator(
+                          device=devs[side]).evaluate_and_report(
+                          at("card", "classes",
+                             f"{m}_classification_map.tif"),
+                          roi_path, at(side, name)))
+               for name, m in (("stage4", "rule_based"),
+                               ("stage4_kmeans", "kmeans"))},
+        }
+        card, launches = {}, {}
+        for name, fn in drivers.items():
+            if name == "stage3_kmeans":
+                # the labelled ROI of the random forest and stage 4: a
+                # seeded sample of the rule map, class 0 labelled 5
+                rule = card["stage3_rule_based"]
+                rng = np.random.default_rng(SEED + 40)
+                roi = np.zeros((h, w), np.uint8)
+                for c in np.unique(rule):
+                    where = np.flatnonzero(rule.reshape(-1) == c)
+                    pick = rng.choice(where, min(ROI_PER_CLASS, where.size),
+                                      replace=False)
+                    roi.reshape(-1)[pick] = c if c else 5
+                write_tiff(roi_path, roi[None], synthetic_geometa((h, w)))
+            (card[name], calls), launches[name] = counted(
+                lambda fn=fn: plain_calls(fn))
+            want = FILE_LAUNCHES[name]
+            check(all(n == want.get(k, 0)
+                      for k, n in launches[name].items()),
+                  f"{name}: launches {launches[name]}, want {want} and no "
+                  f"other kernel")
+            check(not any(calls.values()),
+                  f"{name}: no plain version on the card: {calls}")
+            print(f"file pipeline [{name}]: launches "
+                  f"{ {k: n for k, n in launches[name].items() if n} }, "
+                  f"no plain version", flush=True)
+
+        # ---- what came out, on the card
+        r1 = card["stage1_identity"]
+        check(r1.data.dtype == np.uint8 and r1.shape == scene0.shape
+              and isinstance(r1.data, np.ndarray), "stage 1 Raster uint8")
+        s1, info1 = read_tiff(at("card", "stage1_identity.tif"))
+        check(s1.dtype == np.float32 and np.array_equal(s1, r1.data)
+              and info1.meta.transform == synthetic_geometa().transform,
+              "the stage-1 file holds the levels as f32 with the input's "
+              "georeferencing")
+        raw_pkl = open(pkl, "rb").read()
+        check(b"torch" not in raw_pkl, "the stage-2 pickle holds no tensor")
+        flat_card = normalize_features_structure(load_features(pkl))
+        check(flat_card["height"] == h and flat_card["width"] == w
+              and flat_card["hierarchical_all"].shape == (h, w, 19)
+              and all(np.isfinite(v).all() for v in flat_card.values()
+                      if isinstance(v, np.ndarray)),
+              "stage-2 artifacts: (H, W, 19) finite stacks and metadata")
+        three_file, _ = read_tiff(at(
+            "card", "classes", "rule_based_three_class_evaluation.tif"))
+        three = classify.create_three_class_map(
+            card["stage3_rule_based"], "rule_based", device=dev)
+        check(np.array_equal(three_file[0], three.cpu().numpy()),
+              "rule_based's three-class GeoTIFF equals "
+              "create_three_class_map of its map")
+        check(set(np.unique(card["stage3_random_forest"]).tolist())
+              <= {1, 2, 3, 4, 5}, "forest labels are ROI classes")
+
+        # ---- the forest's map against the plain version of its kernel on
+        # the card: the same training rows give the same forest (the
+        # cached model, or the seeded trainer where sklearn is absent)
+        fa = flat_card["hierarchical_all"]
+        x, y = classify.prepare_training_samples(
+            fa, classify.load_roi_raster(roi_path, (h, w)))
+        forest, _ = classify.train_or_load_forest(
+            x, y, at("card", "classes", "random_forest_model.joblib"))
+        x_cm = torch.nan_to_num(torch.from_numpy(fa).to(
+            dev, torch.float32).reshape(h * w, -1)).T.contiguous()
+        plain_rf = gemm_labels_cm(forest_to_gemm(forest, fa.shape[-1]),
+                                  x_cm).reshape(h, w).cpu().numpy()
+        agree = {"random_forest": float(np.mean(
+            card["stage3_random_forest"] == plain_rf))}
+        check(np.array_equal(card["stage3_random_forest"], plain_rf),
+              f"stage 3 [random_forest]: the map equals gemm_labels_cm of "
+              f"its forest on the card ({agree['random_forest']} agree)")
+
+        # ---- the same drivers on the CPU but the forest's, whose plain
+        # GEMM over some 15 000 leaves at 600 x 600 takes minutes there
+        t0 = time.perf_counter()
+        cpu = {name: fn("cpu") for name, fn in drivers.items()
+               if name != "stage3_random_forest"}
+        cpu_s = time.perf_counter() - t0
+        check(filecmp.cmp(at("card", "stage1_identity.tif"),
+                          at("cpu", "stage1_identity.tif"), shallow=False),
+              "stage 1 at the identity: the card's file byte-equal to the "
+              "CPU's")
+        g_card, _ = read_tiff(at("card", "stage1_gcps.tif"))
+        g_cpu, _ = read_tiff(at("cpu", "stage1_gcps.tif"))
+        gcp_equal = float(np.mean(g_card == g_cpu))
+        check(gcp_equal >= 0.999 and np.abs(g_card - g_cpu).max() <= 1,
+              f"stage 1 with GCPs: card vs CPU {gcp_equal} equal, within "
+              f"one level")
+        (feats, hier), (cfeats, chier) = card["stage2"], cpu["stage2"]
+        fc, fh = dict(flat_features(feats)), dict(flat_features(cfeats))
+        check(sorted(fc) == sorted(fh), "stage 2: the same feature keys")
+        worst = {}
+        for key, ref in fh.items():
+            got = fc[key]
+            bnd = STAGE2_LOOSE.get(key.split("[")[0], 1e-5)
+            if isinstance(bnd, tuple):
+                worst[key] = 1.0 - float(np.mean(got == ref))
+                check(worst[key] <= 1.0 - bnd[1],
+                      f"stage 2 [{key}]: {1 - worst[key]} equal")
+            else:
+                worst[key] = float(np.abs(got - ref).max()) if got.size \
+                    else 0.0
+                check(worst[key] <= bnd, f"stage 2 [{key}]: max err "
+                      f"{worst[key]} > {bnd}")
+        for key in chier:
+            err = float(np.abs(hier[key] - chier[key]).max())
+            check(err <= 1e-3, f"stage 2 [{key}] max err {err}")
+        check(sorted(normalize_features_structure(load_features(at(
+            "cpu", "features", "all_features_and_metadata.pkl"))))
+              == sorted(flat_card), "stage 2: the same pickle keys")
+        agree["rule_based"] = float(np.mean(card["stage3_rule_based"]
+                                            == cpu["stage3_rule_based"]))
+        check(agree["rule_based"] >= 0.999, f"stage 3 [rule_based]: card vs "
+              f"CPU {agree['rule_based']}")
+        ev = evaluate.ClassificationEvaluator(device=dev)
+        truth = card["stage3_rule_based"].astype(np.int64) + 1
+        kappa = {s: mapped_kappa(ev, run["stage3_kmeans"], truth)
+                 for s, run in (("card", card), ("cpu", cpu))}
+        check(abs(kappa["card"] - kappa["cpu"]) <= CARD_CPU_KAPPA_MARGIN,
+              f"stage 3 [kmeans]: mapped kappa card {kappa['card']} vs CPU "
+              f"{kappa['cpu']}")
+        for name in ("stage4", "stage4_kmeans"):
+            (m_card, *_), (m_cpu, *_) = card[name], cpu[name]
+            reports = [open(at(side, name, "evaluation_report.txt")).read()
+                       for side in ("card", "cpu")]
+            check(m_card["labels"] == m_cpu["labels"]
+                  and np.array_equal(m_card["confusion_matrix"],
+                                     m_cpu["confusion_matrix"])
+                  and m_card["overall_accuracy"] == m_cpu["overall_accuracy"]
+                  and m_card["kappa"] == m_cpu["kappa"]
+                  and m_card["per_class"] == m_cpu["per_class"]
+                  and reports[0] == reports[1],
+                  f"{name}: the card's metrics and report equal the CPU's")
+        m_rule, m_km = card["stage4"][0], card["stage4_kmeans"][0]
+        # the ROI is a sample of the rule map itself, so stage 4 on that map
+        # checks the ROI's round trip and the cluster mapping (a perfect
+        # score); the KMeans map is the comparison that can differ
+        check(m_rule["overall_accuracy"] == 1.0 and m_rule["kappa"] == 1.0
+              and m_km["overall_accuracy"] < 1.0,
+              f"stage 4: the rule map scores 1.0 against its own sample, "
+              f"the KMeans map less: {m_rule['overall_accuracy']}, "
+              f"{m_km['overall_accuracy']}")
+        top = sorted(worst.items(), key=lambda kv: -kv[1])[:3]
+        print(f"file pipeline, card vs CPU (the CPU's drivers in "
+              f"{cpu_s:.1f} s): stage 1 file byte-equal, GCP route "
+              f"{gcp_equal:.6f} equal; stage 2 within the CPU tests' "
+              f"bounds, largest {[(k, float(f'{v:.3g}')) for k, v in top]}; "
+              f"stage 3 rule {agree['rule_based']:.6f}, forest against "
+              f"gemm_labels_cm on the card {agree['random_forest']:.6f}, "
+              f"KMeans mapped kappa "
+              f"{kappa['card']:.4f} / {kappa['cpu']:.4f}; stage 4 equal "
+              f"(rule map OA {m_rule['overall_accuracy']:.4f}, kappa "
+              f"{m_rule['kappa']:.4f}; KMeans map OA "
+              f"{m_km['overall_accuracy']:.4f}, kappa {m_km['kappa']:.4f})",
+              flush=True)
+
+        # ---- host wall time of each driver on the card
+        wall = {}
+        for name, fn in drivers.items():
+            wall[name] = wall_s(fn, reps=3)[0]
+        sizes = file_sizes(roots["card"])
+        print(f"file pipeline wall s (median of 3 after a warm-up, "
+              f"{h} x {w}): "
+              f"{ {k: round(v, 4) for k, v in wall.items()} }; artifacts "
+              f"{sum(sizes.values())} bytes; {smi}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for row in rows:
+        row["launches_file_pipeline"] = {name: launches[name].get(
+            row["name"], 0) for name in launches}
+    return {"launches": launches, "wall_s": wall, "artifact_bytes": sizes,
+            "stage1_gcp_card_cpu_equal": gcp_equal,
+            "stage2_largest_card_cpu_err": dict(top),
+            "stage3_card_cpu_agreement": agree,
+            "stage3_kmeans_mapped_kappa": kappa,
+            "stage4_overall_accuracy": m_rule["overall_accuracy"],
+            "stage4_kappa": m_rule["kappa"],
+            "stage4_kmeans_overall_accuracy": m_km["overall_accuracy"],
+            "stage4_kmeans_kappa": m_km["kappa"], "cpu_drivers_s": cpu_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2722,6 +3036,8 @@ def main() -> int:
     serving = serving_phases(dev, cfg, scenes, flat_forest, depth, gf,
                              stack0, smi, rows)
     print(json.dumps({"serving": serving}))
+    files = file_pipeline_phase(scenes[0], dev, smi, rows)
+    print(json.dumps({"file_pipeline": files}))
     print(f"chip_smoke: every check passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -32,7 +32,12 @@ Ported so far:
   three turbo programs on the card) behind ``serving.server``'s HTTP API,
   with ``serving.client``; the (Geo)TIFF codec ``io.tiff`` with its native
   binding ``io.native``, ``models.serialize`` (the JAX package's npz
-  formats), ``core.types.GeoMeta`` and ``utils.log``.
+  formats), ``core.types.GeoMeta`` and ``utils.log``;
+* the four-stage file pipeline: the stage drivers of
+  ``pipeline.preprocess``, ``features``, ``classify`` and ``evaluate``
+  with their writers and plots, ``io.artifacts`` (the stage-2 files),
+  ``pipeline.visualize``, ``ops.features_aux``, ``core.types.Raster`` and
+  ``cli.stages``'s ``stage1`` … ``stage4``.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
 no CUDA device and no explicit device they raise (``backend.py``).

@@ -1,4 +1,5 @@
-"""Device resolution and f32 numerics for the port's entry points.
+"""Device resolution, host and device copies, and f32 numerics for the
+port's entry points.
 
 Entry points run on CUDA unless the caller names another device; a call
 with no device on a host without CUDA raises instead of drifting to the
@@ -40,3 +41,16 @@ def as_tensor(x, device: torch.device,
     t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(x))
     return t.to(device=device, dtype=dtype).contiguous()
+
+
+def host_numpy(tree):
+    """``tree`` with every tensor leaf as a host numpy array, through
+    nested dicts, lists and tuples; other leaves (arrays, Python numbers,
+    strings) as they are."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, dict):
+        return {k: host_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(host_numpy(v) for v in tree)
+    return tree

@@ -1,16 +1,20 @@
-"""Geo-referencing metadata of a raster.
+"""Geo-referencing metadata of a raster, and the raster container.
 
-Counterpart of ``GeoMeta`` in ``rs_image_segmentation_tpu.core.types``, as
-a plain frozen dataclass (the JAX package's ``Raster`` pytree has no
-counterpart here). The reference carries ``(geotransform, projection)``
-from GDAL and rasterio's ``transform``/``crs``; ``GeoMeta`` takes both
-spellings.
+Counterpart of ``rs_image_segmentation_tpu.core.types``: ``GeoMeta`` as a
+plain frozen dataclass, and ``Raster`` as a plain dataclass with the same
+fields and accessors (without the JAX package's pytree protocol). The
+reference carries ``(geotransform, projection)`` from GDAL and rasterio's
+``transform``/``crs``; ``GeoMeta`` takes both spellings.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
+
+import numpy as np
+
+from ..backend import host_numpy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,3 +55,40 @@ class GeoMeta:
 
     def is_identity(self) -> bool:
         return self.transform is None or self.transform == (1.0, 0.0, 0.0, 0.0, 1.0, 0.0)
+
+
+@dataclasses.dataclass
+class Raster:
+    """A band-stacked raster: ``data`` is ``(C, H, W)`` (or ``(H, W)``),
+    a numpy array or a tensor, with its geo metadata and band names."""
+
+    data: Any
+    meta: GeoMeta = dataclasses.field(default_factory=GeoMeta)
+    band_names: Optional[Tuple[str, ...]] = None
+
+    @property
+    def shape(self):
+        return self.data.shape
+
+    @property
+    def count(self) -> int:
+        return 1 if self.data.ndim == 2 else int(self.data.shape[0])
+
+    @property
+    def height(self) -> int:
+        return int(self.data.shape[-2])
+
+    @property
+    def width(self) -> int:
+        return int(self.data.shape[-1])
+
+    def band(self, i: int):
+        """0-based band accessor."""
+        return self.data if self.data.ndim == 2 else self.data[i]
+
+    def with_data(self, data) -> "Raster":
+        return Raster(data, self.meta, self.band_names)
+
+    def numpy(self) -> np.ndarray:
+        """``data`` as a host numpy array."""
+        return np.asarray(host_numpy(self.data))

@@ -15,19 +15,25 @@ On CUDA the seven indices run the kernel ``ops.kernels
 (``glcm_feature_maps(backend="kernel")``); on CPU tensors their plain
 versions. Everything else is plain torch ops. The texture band is always
 ``cfg.texture_band_index`` (NIR), renormalised with the default
-percentiles, as the reference does. Entry points run on CUDA unless the
-caller names another device. ``run_feature_extraction_stage`` and
-``visualize_features`` (file I/O and plots) are not ported yet.
+percentiles, as the reference does. ``run_feature_extraction_stage`` is
+the stage-2 file driver (the stage-1 GeoTIFF in; the ``.npy`` stacks, the
+pickle and the feature GeoTIFF out, through ``io.artifacts``), and
+``visualize_features`` its plots. Entry points run on CUDA unless the
+caller names another device.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
-from ..backend import DeviceLike, as_tensor, resolve_device
+from ..backend import DeviceLike, as_tensor, host_numpy, resolve_device
 from ..core.config import FeatureStageConfig
+from ..io.artifacts import save_feature_artifacts
+from ..io.tiff import read_tiff
 from ..models.pca import pca_bands
 from ..ops.kernels import INDEX_ORDER, fused_spectral_indices
 from ..ops.morphology import closing, dilate, erode, gradient, opening
@@ -190,3 +196,105 @@ def hierarchical_stack_fused(bands,
     smag = smag / (torch.max(smag) + 1e-10)
     return assemble(idx, pca_imgs[0], glcm, grad5, std5, smag,
                     cfg.context.window_size)["all"]
+
+
+def run_feature_extraction_stage(
+    input_path: str,
+    output_dir: str,
+    cfg: FeatureStageConfig = FeatureStageConfig(),
+    vis: bool = True,
+    include_entropy: bool = True,
+    device: DeviceLike = None,
+) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """Stage 2 on files: read the stage-1 GeoTIFF (NoData -> NaN -> 0),
+    run :func:`extract_features` on ``device`` (CUDA unless named), and
+    write the ``.npy`` stacks, the pickle and the 19-band GeoTIFF (and,
+    with ``vis``, the plots). Returns the features and the hierarchical
+    stacks as host numpy, ``pca_result`` as a list of 2-D planes."""
+    dev = resolve_device(device)
+    arr, info = read_tiff(input_path)
+    data = arr.astype(np.float32)
+    if info.meta.nodata is not None:
+        data[data == info.meta.nodata] = np.nan
+    feats, hier = extract_features(np.nan_to_num(data), cfg,
+                                   include_entropy=include_entropy,
+                                   device=dev)
+    feats_np = host_numpy(feats)
+    hier_np = host_numpy(hier)
+    # the reference stores pca_result as a list of 2-D arrays
+    if "pca_result" in feats_np:
+        feats_np["pca_result"] = list(feats_np["pca_result"])
+
+    save_feature_artifacts(output_dir, feats_np, hier_np, info.meta)
+    if vis:
+        visualize_features(feats_np, hier_np, output_dir)
+    return feats_np, hier_np
+
+
+def visualize_features(feats: Dict, hier: Dict, output_dir: str) -> None:
+    """Index maps, the PCA composite and variance bars, and the level-1,
+    level-2 and combined feature grids as PNGs (host, matplotlib)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    feats, hier = host_numpy(feats), host_numpy(hier)
+    os.makedirs(output_dir, exist_ok=True)
+    index_cmaps = {"ndvi": "RdYlGn", "ndwi": "Blues", "mndwi": "Blues",
+                   "ndbi": "RdGy_r", "bsi": "YlOrBr"}
+    fig, axes = plt.subplots(1, 5, figsize=(25, 5))
+    for ax, (name, cmap) in zip(axes, index_cmaps.items()):
+        im = ax.imshow(np.asarray(feats[name]), cmap=cmap, vmin=-1, vmax=1)
+        ax.set_title(name.upper())
+        ax.axis("off")
+        fig.colorbar(im, ax=ax, fraction=0.046)
+    fig.tight_layout()
+    fig.savefig(os.path.join(output_dir, "index_maps.png"), dpi=120)
+    plt.close(fig)
+
+    pca = feats.get("pca_result")
+    if pca is not None:
+        pca = np.stack(pca) if isinstance(pca, list) else np.asarray(pca)
+        rgb = np.stack([(p - p.min()) / (p.max() - p.min() + 1e-10)
+                        for p in pca[:3]], axis=-1)
+        fig, axes = plt.subplots(1, 2, figsize=(13, 6))
+        axes[0].imshow(rgb)
+        axes[0].set_title("PCA PC1-3 composite")
+        axes[0].axis("off")
+        vr = np.asarray(feats["variance_ratio"])
+        axes[1].bar(np.arange(1, len(vr) + 1), vr)
+        axes[1].set_title("Explained variance ratio")
+        axes[1].set_xlabel("component")
+        fig.tight_layout()
+        fig.savefig(os.path.join(output_dir, "feature_pca.png"), dpi=120)
+        plt.close(fig)
+
+        # the reference also writes the variance bars to a file of their own
+        fig, ax = plt.subplots(figsize=(8, 5))
+        ax.bar(np.arange(1, len(vr) + 1), vr)
+        ax.set_title("PCA explained variance ratio")
+        ax.set_xlabel("component")
+        ax.set_ylabel("ratio")
+        fig.tight_layout()
+        fig.savefig(os.path.join(output_dir, "pca_variance_explained.png"),
+                    dpi=120)
+        plt.close(fig)
+
+    for key, fname in (("level_1", "level_1_features.png"),
+                       ("level_2", "level_2_features.png"),
+                       ("all", "combined_features.png")):
+        stack = np.asarray(hier[key])
+        n = stack.shape[-1]
+        cols = min(n, 7)
+        rows = -(-n // cols)
+        fig, axes = plt.subplots(rows, cols, figsize=(3 * cols, 3 * rows))
+        axes = np.atleast_2d(axes)
+        for i in range(rows * cols):
+            ax = axes[i // cols, i % cols]
+            ax.axis("off")
+            if i < n:
+                ax.imshow(stack[:, :, i], cmap="viridis")
+                ax.set_title(f"ch {i}", fontsize=8)
+        fig.tight_layout()
+        fig.savefig(os.path.join(output_dir, fname), dpi=100)
+        plt.close(fig)

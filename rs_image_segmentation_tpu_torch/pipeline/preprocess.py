@@ -10,27 +10,32 @@ histogram of the stretched scene. The device routes:
 * ``preprocess_bands`` on a uint8 scene with the identity warp: the exact
   host LUT, applied on the device (bit-equal to the JAX package);
 * any other dtype (16-bit Landsat 8/9 DNs, float rasters) or a real warp:
-  ``preprocess_bands_f32``, which with the identity warp runs the CUDA
-  kernel ``ops.kernels.fused_calibrate_stretch`` and with a warp runs
-  calibrate, ``warp_affine_bilinear`` and ``minmax_stretch_u8`` as plain
-  torch ops.
+  ``preprocess_bands_f32``, which runs the CUDA kernel
+  ``ops.kernels.fused_calibrate_stretch``: with the identity warp on the
+  DNs, with a warp (a GCP fit) on the calibrated and warped radiance, with
+  unit gains and zero biases, so that the kernel does the stretch alone.
+
+``run_preprocessing_stage`` is the stage-1 file driver: a GeoTIFF in, the
+Float32 GeoTIFF of the uint8 levels out (and the false-colour PNG).
 
 Entry points run on CUDA unless the caller names another device.
-File I/O (``run_preprocessing_stage``) is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import os
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..backend import DeviceLike, as_tensor, resolve_device
+from ..core.config import CalibrationConfig
+from ..core.types import Raster
 from ..io import native as _native
+from ..io.tiff import read_tiff, write_tiff
 from ..ops.kernels import apply_u8_lut, fused_calibrate_stretch
-from ..ops.normalize import minmax_stretch_u8
-from ..ops.resize import warp_affine_bilinear
+from ..ops.resize import estimate_affine_from_gcps, warp_affine_bilinear
 
 _IDENTITY = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0)
 
@@ -48,16 +53,18 @@ def preprocess_bands_f32(bands, gains, biases,
                          device: DeviceLike = None) -> torch.Tensor:
     """The f32 device route: ``(C, H, W)`` DNs of any dtype -> ``(C, H, W)``
     uint8. Identity warp: the fused calibrate + stretch kernel, truncated.
-    A real warp: calibrate, ``warp_affine_bilinear``, then
-    ``minmax_stretch_u8`` per band. Truncation boundaries may differ from
-    f64 by one level."""
+    A real warp: calibrate, ``warp_affine_bilinear``, then the same kernel
+    with unit gains and zero biases (``x * 1 + 0`` is ``x`` in f32), which
+    leaves it the per-band ``minmax_stretch_u8``. Truncation boundaries
+    may differ from f64 by one level."""
     dev = resolve_device(device)
     x = as_tensor(bands, dev)
-    if tuple(matrix) == _IDENTITY:
-        return fused_calibrate_stretch(x, gains, biases).to(torch.uint8)
-    cal = radiometric_calibration(x, gains, biases)
-    cal = warp_affine_bilinear(cal, np.asarray(matrix).reshape(2, 3))
-    return minmax_stretch_u8(cal)
+    if tuple(matrix) != _IDENTITY:
+        cal = radiometric_calibration(x, gains, biases)
+        x = warp_affine_bilinear(cal, np.asarray(matrix).reshape(2, 3))
+        gains = np.ones(x.shape[0], np.float32)
+        biases = np.zeros(x.shape[0], np.float32)
+    return fused_calibrate_stretch(x, gains, biases).to(torch.uint8)
 
 
 def preprocess_bands(bands, gains, biases,
@@ -205,3 +212,62 @@ def build_stretch_stats(arr_u8: np.ndarray, gains, biases):
             hist_raw = np.bincount(arr_u8[i].reshape(-1), minlength=256)
         np.add.at(hist[i], lut[i].astype(np.int64), hist_raw)
     return lut, params, hist.astype(np.int32)
+
+
+def run_preprocessing_stage(input_path: str, output_path: str,
+                            vis_dir: Optional[str] = None,
+                            config: CalibrationConfig = CalibrationConfig(),
+                            gcp_matrix: Optional[Sequence[float]] = None,
+                            gcps=None, device: DeviceLike = None) -> Raster:
+    """Stage 1 on files: read the GeoTIFF, preprocess on ``device`` (CUDA
+    unless named), write the uint8 levels as a Float32 GeoTIFF with the
+    input's georeferencing (and, with ``vis_dir``, the 4-3-2 false-colour
+    before/after PNG). ``gcps``, ``((src_x, src_y), (dst_x, dst_y))``
+    pairs, give the affine warp by least squares; else ``gcp_matrix``;
+    else the identity. Returns a ``Raster`` of the host uint8 levels."""
+    dev = resolve_device(device)
+    arr, info = read_tiff(input_path)
+    if gcps is not None:
+        matrix = tuple(estimate_affine_from_gcps(gcps).reshape(-1))
+    elif gcp_matrix is not None:
+        matrix = tuple(gcp_matrix)
+    else:
+        matrix = _IDENTITY
+    out_np = preprocess_bands(arr, np.asarray(config.gains),
+                              np.asarray(config.biases), matrix=matrix,
+                              device=dev).cpu().numpy()
+
+    os.makedirs(os.path.dirname(output_path) or ".", exist_ok=True)
+    write_tiff(output_path, out_np.astype(np.float32), info.meta)
+
+    if vis_dir:
+        os.makedirs(vis_dir, exist_ok=True)
+        _false_color_comparison(arr, out_np,
+                                os.path.join(vis_dir,
+                                             "preprocessing_result.png"))
+    return Raster(out_np, info.meta)
+
+
+def _false_color_comparison(before: np.ndarray, after: np.ndarray,
+                            path: str) -> None:
+    """4-3-2 false-colour before/after side by side (host, matplotlib)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    def composite(stack):
+        rgb = np.stack([stack[3], stack[2], stack[1]],
+                       axis=-1).astype(np.float32)
+        mx = rgb.max() or 1.0
+        return rgb / mx
+
+    fig, axes = plt.subplots(1, 2, figsize=(12, 6))
+    axes[0].imshow(composite(before))
+    axes[0].set_title("Before preprocessing (4-3-2)")
+    axes[0].axis("off")
+    axes[1].imshow(composite(after))
+    axes[1].set_title("After preprocessing (4-3-2)")
+    axes[1].axis("off")
+    fig.tight_layout()
+    fig.savefig(path, dpi=150)
+    plt.close(fig)

@@ -1,5 +1,8 @@
 """Synthetic 7-band uint8 scenes, and a forest fitted on them, for tests
-and smoke runs (numpy only).
+and smoke runs (numpy only); and the stage-3 fixtures of the JAX
+package's ``tools.fixtures`` (synthetic georeferencing, a dummy stage-2
+pickle, a random class map), which give the same arrays for the same
+seed.
 
 Each band is a smoothed random field: a coarse field shared by all bands
 of a scene (so bands correlate, as land cover makes them), plus a finer
@@ -11,9 +14,14 @@ ranges and take the fixed-point route (mode 1).
 
 from __future__ import annotations
 
+import os
+import pickle
+from typing import Optional, Tuple
+
 import numpy as np
 
 from ..core.config import CalibrationConfig, ForestConfig
+from ..core.types import GeoMeta
 from ..models.forest import _gemm_for, fit_random_forest, forest_tree_plan
 from ..pipeline.preprocess import build_stretch_params, build_stretch_stats
 
@@ -144,7 +152,6 @@ def rule_forest(stack: np.ndarray):
     raise RuntimeError("no sample count gave a forest with a tree plan")
 
 
-
 def deep_forest_fields(stack: np.ndarray, depth: int = 12, n_trees: int = 5,
                        n_classes: int = 4, seed: int = 0) -> dict:
     """Numpy ``FlatForest`` fields (``flat_forest_from_numpy``) of
@@ -176,3 +183,49 @@ def deep_forest_fields(stack: np.ndarray, depth: int = 12, n_trees: int = 5,
             "leaf_proba": rng.dirichlet(np.ones(n_classes), (n_trees, n_nodes)
                                         ).astype(np.float32),
             "classes": np.arange(1, n_classes + 1, dtype=np.int32)}
+
+
+def synthetic_geometa(shape: Tuple[int, int] = (256, 256)) -> GeoMeta:
+    """EPSG:32630, 30 m pixels at a plausible UTM origin."""
+    return GeoMeta(transform=(30.0, 0.0, 500000.0, 0.0, -30.0, 4000000.0),
+                   crs="EPSG:32630")
+
+
+def make_dummy_feature_pkl(path: Optional[str] = None,
+                           shape: Tuple[int, int] = (256, 256),
+                           seed: int = 0) -> dict:
+    """Random index maps + hierarchical stacks with the stage-2 pickle
+    layout; written to ``path`` when one is given."""
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    idx = {name: rng.uniform(-1, 1, (h, w)).astype(np.float32)
+           for name in ["ndvi", "ndwi", "mndwi", "ndbi", "bsi", "evi",
+                        "msavi"]}
+    idx["texture_mean"] = rng.random((h, w)).astype(np.float32)
+    level1 = rng.random((h, w, 14)).astype(np.float32)
+    level2 = rng.random((h, w, 5)).astype(np.float32)
+    meta = synthetic_geometa(shape)
+    payload = {
+        "all_extracted_features_dict": idx,
+        "hierarchical_features": {
+            "level_1": level1,
+            "level_2": level2,
+            "all": np.concatenate([level1, level2], axis=-1),
+        },
+        "dimensions": (h, w),
+        "geo_transform": meta.to_gdal(),
+        "crs": meta.crs,
+    }
+    if path:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "wb") as f:
+            pickle.dump(payload, f)
+    return payload
+
+
+def make_random_classification_map(shape: Tuple[int, int] = (256, 256),
+                                   n_classes: int = 4,
+                                   seed: int = 0) -> np.ndarray:
+    """Random uint8 label map, labels 0..n_classes."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, n_classes + 1, shape).astype(np.uint8)
