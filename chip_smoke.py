@@ -7,9 +7,11 @@ large-scene route on one 7 x 600 x 600 scene, a noise scene and one
 stage 2 (the feature graph, full width) on one 7 x 600 x 600 scene;
 forest predict and stage 4's metrics; the tiled large-scene pipeline
 (supervised, streamed, KMeans, resumable) on 7 x 6000 x 6000 scenes;
-the serving engine with its HTTP server on 7 x 600 x 600 requests; and
+the serving engine with its HTTP server on 7 x 600 x 600 requests;
 the four-stage file pipeline (GeoTIFF -> stage 1 -> stage 2 artifacts ->
-stage 3 maps -> stage 4 report) on one 7 x 600 x 600 scene.
+stage 3 maps -> stage 4 report) on one 7 x 600 x 600 scene; and the
+tools and the rest of the CLI (batch workflow, batch and large-scene
+CLIs, the supervised tools, the server as a subprocess, the utils).
 
 Phases, in order; any failed check raises and the script exits non-zero:
   1. the card (nvidia-smi name and power limit); build every CUDA kernel
@@ -171,6 +173,35 @@ Phases, in order; any failed check raises and the script exits non-zero:
      (median of 3 after a warm-up) and the artifacts' sizes; it prints a
      ``{"file_pipeline": ...}`` line. The plots of stages 3 and 4 are not
      drawn: the card's machine has no matplotlib;
+ 21. the tools and the rest of the CLI: ``tools.batch.run_batch_workflow``
+     on ten 7 x 600 x 600 GeoTIFFs (``synthetic_geometa``) with ROIs and
+     the supervised cell's forest, its turbo branch (sub-batches of 8 and
+     2: ``lut_hist`` and ``forest_labels`` twice each, no plain version;
+     each map bit-equal to ``classify_scenes_turbo`` of its scene at
+     B = 1 with the host stretch stats; OA and kappa equal stage 4's),
+     its streamed branch on two 16-bit copies (per scene one launch each
+     of the stretch, the indices, ``glcm_grid`` and the forest; >= 99.9 %
+     equal to its ``device="cpu"`` run) and a 20 480-leaf forest past the
+     leaf cap (equal to ``hierarchical_stack_fused`` + ``forest_predict``);
+     ``rs-seg-torch-batch`` with an npz forest (every file byte-equal to
+     the workflow's); ``rs-seg-torch-classify-large`` ``--raw`` with the
+     npz on a 7 x 6000 x 6000 reflected tiling (the map read back
+     bit-equal to ``preprocess_large`` + ``classify_large_scene``, the
+     same launches), and KMeans, rules and a ``--checkpoint-dir`` run
+     interrupted after 2 tiles and resumed on a 1260^2 tiling, each equal
+     to its library calls; ``tools.supervised`` on scene 0's stack from
+     33 samples (``predict_image`` equal to ``gemm_labels_cm`` of its
+     forest, the grid's cv scores and the validation report equal to
+     their ``device="cpu"`` runs, ``class_map.npy`` written);
+     ``rs-seg-torch-serve`` as a subprocess (``/healthz`` backend cuda,
+     scene 0 as npy and as GeoTIFF equal to the direct program at B = 1,
+     stopped by SIGINT); ``device_trace`` around a supervised batch (a
+     CUDA lane holds the ``lut_hist`` and ``forest_labels`` kernels),
+     ``StageTimer``, and ``checked`` (raises on ``log(-1)`` and ``1/0`` on
+     CUDA tensors, and passes or raises on stage 1 and the stack exactly
+     as on the CPU); launch counts around each route, and host wall times
+     (median of 3 after a warm-up); it prints a ``{"tools_cli": ...}``
+     line;
  then the card's line, the kernels' JSON line and the result line.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs no
@@ -190,7 +221,8 @@ import time
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
 
 from rs_image_segmentation_tpu_torch.tools.kernel_times import (  # noqa: E402
     cold_ms, dn16, graph_cc_masks, kernel_device_ms, kernel_numbers,
@@ -2739,6 +2771,540 @@ def file_pipeline_phase(scene0: np.ndarray, dev, smi: str, rows) -> dict:
             "stage4_kmeans_kappa": m_km["kappa"], "cpu_drivers_s": cpu_s}
 
 
+TOOLS_SCENES = 10                  # one turbo sub-batch of 8, one of 2
+TOOLS_REPS = 3                     # wall times: median of 3 after a warm-up
+SERVE_START_S = 300                # the server's start, its build and warm-up
+# each batch route's kernels and how often it must launch each; every
+# other kernel, never: the turbo branch launches both of its kernels once
+# a sub-batch, the streamed branch each stage kernel and the forest once a
+# scene (16-bit DNs: the calibrate-stretch route), and past the leaf cap
+# the uint8 scenes take the host LUT and the trees are walked without
+# the forest kernel
+TOOLS_LAUNCHES = {
+    "batch_turbo": {"lut_hist": 2, "forest_labels": 2},
+    "batch_streamed": {"fused_calibrate_stretch": 2,
+                       "fused_spectral_indices": 2, "glcm_grid": 2,
+                       "forest_labels": 2},
+    "batch_past_cap": {"fused_spectral_indices": 2, "glcm_grid": 2},
+}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def tools_cli_phase(dev, cfg, scenes, flat_forest, depth, gf, stack0, smi,
+                    rows) -> dict:
+    """Phase 21: the tools and the rest of the CLI on the card, the entry
+    points a user runs: ``tools.batch.run_batch_workflow`` (turbo branch
+    on ten 600 x 600 GeoTIFFs, streamed branch on two 16-bit ones, a
+    forest past the leaf cap), ``rs-seg-torch-batch``,
+    ``rs-seg-torch-classify-large`` (random forest at 6000^2, KMeans,
+    rules and a resumed checkpoint at 1260^2), ``tools.supervised`` on
+    scene 0's stack, ``rs-seg-torch-serve`` as a subprocess, and
+    ``utils`` (``device_trace`` with ``utils.traceview``, ``StageTimer``,
+    ``checked``). Launch counts and plain calls around each route,
+    each against its library call or its ``device="cpu"`` run, and host
+    wall times. Adds each kernel's launches to its row."""
+    import filecmp
+    import shutil
+    import signal
+    import tempfile
+
+    from rs_image_segmentation_tpu_torch.cli import stages as cli_stages
+    from rs_image_segmentation_tpu_torch.core.config import (
+        CalibrationConfig, ForestConfig)
+    from rs_image_segmentation_tpu_torch.io.tiff import read_tiff, write_tiff
+    from rs_image_segmentation_tpu_torch.models.forest import (
+        FlatForest, GemmForest, _gemm_for, flat_forest_from_numpy,
+        forest_predict)
+    from rs_image_segmentation_tpu_torch.models.serialize import (
+        save_flat_forest)
+    from rs_image_segmentation_tpu_torch.ops.kernels import (forest_labels,
+                                                             gemm_labels_cm)
+    from rs_image_segmentation_tpu_torch.pipeline import large_scene as ls
+    from rs_image_segmentation_tpu_torch.pipeline import turbo
+    from rs_image_segmentation_tpu_torch.pipeline.evaluate import (
+        ClassificationEvaluator)
+    from rs_image_segmentation_tpu_torch.pipeline.features import (
+        hierarchical_stack_fused)
+    from rs_image_segmentation_tpu_torch.pipeline.preprocess import (
+        build_stretch_stats, preprocess_bands)
+    from rs_image_segmentation_tpu_torch.serving import client
+    from rs_image_segmentation_tpu_torch.tools import (batch, sampling,
+                                                       supervised)
+    from rs_image_segmentation_tpu_torch.tools.fixtures import (
+        deep_forest_fields, rule_labels, synthetic_geometa, synthetic_scenes)
+    from rs_image_segmentation_tpu_torch.utils import guards, traceview
+    from rs_image_segmentation_tpu_torch.utils.timing import (StageTimer,
+                                                              device_trace)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    cal = CalibrationConfig()
+    out, launches, wall = {}, {}, {}
+
+    def at(*parts):
+        return os.path.join(tmp, *parts)
+
+    def run_counted(name, fn):
+        """``fn()`` with launches and plain calls counted around it; no
+        plain version may run."""
+        (res, calls), launches[name] = counted(lambda: plain_calls(fn))
+        check(not any(calls.values()), f"{name}: no plain version on the "
+              f"card: {calls}")
+        return res
+
+    def want_launches(name):
+        want = TOOLS_LAUNCHES[name]
+        check(all(n == want.get(k, 0) for k, n in launches[name].items()),
+              f"{name}: launches {launches[name]}, want {want} and no other "
+              f"kernel")
+
+    def band0(path):
+        return read_tiff(path)[0][0]
+
+    def direct_b1(scene):
+        """The supervised program on one scene at B = 1 with the serving
+        engine's host inputs (params and host histogram)."""
+        lut, sp, hist = build_stretch_stats(scene, cal.gains, cal.biases)
+        return turbo.classify_scenes_turbo(
+            scene[None], lut[None].astype(np.uint8), gf, cfg,
+            stretch_params=sp[None], stretch_hists=hist[None],
+            device=dev)[0].cpu().numpy()
+
+    try:
+        # ---- 21a. run_batch_workflow, turbo branch: ten GeoTIFFs
+        ten = np.concatenate([scenes, synthetic_scenes(
+            TOOLS_SCENES - len(scenes), HEIGHT, WIDTH, seed=SEED + 50)])
+        meta = synthetic_geometa((HEIGHT, WIDTH))
+        os.makedirs(at("in"))
+        paths, rois = [], []
+        rng = np.random.default_rng(SEED + 51)
+        for i, s in enumerate(ten):
+            paths.append(at("in", f"scene{i}.tif"))
+            write_tiff(paths[-1], s, meta)
+            roi = np.zeros((HEIGHT, WIDTH), np.int16)
+            roi[::15, ::15] = rng.integers(1, 5, roi[::15, ::15].shape)
+            rois.append(at("in", f"roi{i}.npy"))
+            np.save(rois[-1], roi)
+
+        def batch_turbo():
+            return batch.run_batch_workflow(paths, flat_forest, depth,
+                                            at("batch"), roi_paths=rois,
+                                            cfg=cfg, device=dev)
+
+        res = run_counted("batch_turbo", batch_turbo)
+        want_launches("batch_turbo")
+        maps = [band0(r["class_map"]) for r in res]
+        bad = [i for i, s in enumerate(ten)
+               if not np.array_equal(maps[i], direct_b1(s))]
+        check(not bad, f"batch turbo: each map bit-equal to "
+              f"classify_scenes_turbo of its scene at B = 1; differ {bad}")
+        ev = ClassificationEvaluator(device=dev)
+        for i, r in enumerate(res):
+            m, *_ = ev.evaluate_and_report(r["class_map"], rois[i],
+                                           at("stage4", str(i)),
+                                           map_clusters=False)
+            check(m["overall_accuracy"] == r["overall_accuracy"]
+                  and m["kappa"] == r["kappa"], f"batch turbo scene {i}: OA "
+                  f"and kappa equal stage 4's on the same map")
+        print(f"tools [batch turbo]: {TOOLS_SCENES} scenes, launches "
+              f"{ {k: n for k, n in launches['batch_turbo'].items() if n} }, "
+              f"no plain version; each map bit-equal to its B = 1 program "
+              f"(host stretch stats), OA/kappa equal stage 4's "
+              f"(scene 0: {res[0]['overall_accuracy']:.4f} / "
+              f"{res[0]['kappa']:.4f})", flush=True)
+        wall["batch_turbo"] = wall_s(batch_turbo, TOOLS_REPS)[0]
+
+        # ---- 21b. the streamed branch: two 16-bit scenes; past the cap
+        paths16 = []
+        for i in range(2):
+            paths16.append(at("in", f"dn16_{i}.tif"))
+            write_tiff(paths16[-1], dn16(ten[i]), meta)
+
+        def batch_streamed(device=dev, where="streamed"):
+            return batch.run_batch_workflow(paths16, flat_forest, depth,
+                                            at(where), cfg=cfg,
+                                            device=device)
+
+        res16 = run_counted("batch_streamed", batch_streamed)
+        want_launches("batch_streamed")
+        cpu16 = batch_streamed("cpu", "streamed_cpu")
+        agree16 = [float(np.mean(band0(a["class_map"])
+                                 == band0(b["class_map"])))
+                   for a, b in zip(res16, cpu16)]
+        check(all(a >= 0.999 for a in agree16), f"batch streamed: card "
+              f"against CPU {agree16}")
+        deep = flat_forest_from_numpy(deep_forest_fields(stack0))
+        check(_gemm_for(deep, 19) is None, "the deep forest is past the cap")
+
+        def batch_past_cap():
+            return batch.run_batch_workflow(paths[:2], deep, 12, at("deep"),
+                                            cfg=cfg, device=dev)
+
+        res_deep = run_counted("batch_past_cap", batch_past_cap)
+        want_launches("batch_past_cap")
+        deep_d = FlatForest(*(t.to(dev) for t in deep))
+        for i in range(2):
+            pre = preprocess_bands(ten[i], cal.gains, cal.biases, device=dev)
+            st = hierarchical_stack_fused(pre.float(), cfg, device=dev)
+            want = forest_predict(deep_d, st.reshape(-1, 19), 12).reshape(
+                HEIGHT, WIDTH).cpu().numpy().astype(np.uint8)
+            got = band0(res_deep[i]["class_map"])
+            check(np.array_equal(got, want) and len(np.unique(want)) > 1,
+                  f"past the cap, scene {i}: equal to "
+                  f"hierarchical_stack_fused + forest_predict on the card")
+        print(f"tools [batch streamed]: 2 16-bit scenes, launches "
+              f"{ {k: n for k, n in launches['batch_streamed'].items() if n} }"
+              f", card against CPU {agree16}; past the cap (20 480 leaves) "
+              f"launches {({k: n for k, n in launches['batch_past_cap'].items() if n})}"
+              f", equal to the direct route", flush=True)
+        wall["batch_streamed"] = wall_s(batch_streamed, TOOLS_REPS)[0]
+        wall["batch_past_cap"] = wall_s(batch_past_cap, TOOLS_REPS)[0]
+
+        # ---- 21c. rs-seg-torch-batch with an npz forest
+        npz = at("forest.npz")
+        save_flat_forest(npz, flat_forest, depth)
+
+        def batch_cli():
+            cli_stages.batch_classify(paths + ["--model", npz, "--rois",
+                                               *rois, "--output-dir",
+                                               at("batch_cli"), "--device",
+                                               str(dev)])
+
+        run_counted("batch_cli", batch_cli)
+        check(launches["batch_cli"] == launches["batch_turbo"],
+              f"rs-seg-torch-batch launches what the workflow does: "
+              f"{launches['batch_cli']}")
+        names = sorted(os.listdir(at("batch")))
+        check(names == sorted(os.listdir(at("batch_cli"))) and all(
+            filecmp.cmp(at("batch", n), at("batch_cli", n), shallow=False)
+            for n in names), "rs-seg-torch-batch: every file byte-equal to "
+              "the workflow's")
+        print(f"tools [rs-seg-torch-batch]: {len(names)} files byte-equal "
+              f"to the workflow's", flush=True)
+        wall["batch_cli"] = wall_s(batch_cli, TOOLS_REPS)[0]
+
+        # ---- 21d. rs-seg-torch-classify-large
+        big = reflected_tiling(scenes[0], LARGE)
+        big_path = at("in", "big.tif")
+        write_tiff(big_path, big, synthetic_geometa((LARGE, LARGE)))
+        gf_npz = _gemm_for(flat_forest, 19)
+
+        def large_cli(scene_path, method, output, *extra):
+            return lambda: cli_stages.classify_large(
+                ["--scene", scene_path, "--raw", "--method", method,
+                 "--model", npz, "--output", output, "--device", str(dev),
+                 *extra])
+
+        def large_rf_library():
+            pre, hists = ls.preprocess_large(big, cal, return_hist=True,
+                                             device=dev)
+            return ls.classify_large_scene(pre, gf_npz, hists=hists,
+                                           device=dev)
+
+        rf_cli = large_cli(big_path, "random_forest", at("large_rf.tif"))
+        run_counted("classify_large_rf", rf_cli)
+        want_big, lib_launches = counted(large_rf_library)
+        check(np.array_equal(band0(at("large_rf.tif")),
+                             want_big.astype(np.uint8)),
+              f"classify_large --raw random_forest at {LARGE}^2: the map "
+              f"read back equals preprocess_large + classify_large_scene")
+        check(launches["classify_large_rf"] == lib_launches
+              and lib_launches["forest_labels"] == -(-LARGE // LARGE_TILE),
+              f"classify_large launches what its library calls do, "
+              f"forest_labels once a tile: {launches['classify_large_rf']} "
+              f"/ {lib_launches}")
+        del big, want_big
+        mid = reflected_tiling(scenes[0], MID)
+        mid_path = at("in", "mid.tif")
+        write_tiff(mid_path, mid, synthetic_geometa((MID, MID)))
+        pre_mid, hists_mid = ls.preprocess_large(mid, cal, return_hist=True,
+                                                 device=dev)
+        def raw_mid():
+            # the CLI's --raw step
+            return ls.preprocess_large(mid, cal, return_hist=True,
+                                       device=dev)
+
+        def kmeans_library():
+            return ls.kmeans_large_scene(raw_mid()[0], 7, device=dev)
+
+        def rule_library():
+            pre, hists = raw_mid()
+            return ls.rule_based_large_scene(pre, hists=hists, device=dev)
+
+        library = {"kmeans": kmeans_library, "rule_based": rule_library}
+        for m, lib in library.items():
+            name = f"classify_large_{m}"
+            run_counted(name, large_cli(mid_path, m, at(f"{name}.tif")))
+            want, lib_launches = counted(lib)
+            check(np.array_equal(band0(at(f"{name}.tif")),
+                                 want.astype(np.uint8))
+                  and launches[name] == lib_launches,
+                  f"classify_large --method {m} at {MID}^2 equals its "
+                  f"library calls and launches what they do: "
+                  f"{launches[name]} / {lib_launches}")
+        ck = at("checkpoint")
+        try:
+            ls.classify_large_scene_resumable(pre_mid, gf_npz, ck,
+                                              hists=hists_mid,
+                                              interrupt_after=2, device=dev)
+            check(False, "classify_large_scene_resumable: interrupt_after=2 "
+                  "raises")
+        except ls.TileInterrupt:
+            pass
+        run_counted("classify_large_rf_resumed", large_cli(
+            mid_path, "random_forest", at("large_resumed.tif"),
+            "--checkpoint-dir", ck))
+        want_mid = ls.classify_large_scene(pre_mid, gf_npz, hists=hists_mid,
+                                           device=dev)
+        mid_tiles = -(-MID // LARGE_TILE)
+        check(np.array_equal(band0(at("large_resumed.tif")),
+                             want_mid.astype(np.uint8))
+              and launches["classify_large_rf_resumed"]["forest_labels"]
+              == mid_tiles - 2,
+              f"classify_large --checkpoint-dir, interrupted after 2 tiles "
+              f"and resumed at {MID}^2: equal to classify_large_scene, the "
+              f"resumed run computing only the last tile: "
+              f"{launches['classify_large_rf_resumed']}")
+        print(f"tools [rs-seg-torch-classify-large]: random_forest at "
+              f"{LARGE}^2 (--raw, npz) bit-equal to its library calls, "
+              f"launches "
+              f"{ {k: n for k, n in launches['classify_large_rf'].items() if n} }"
+              f"; at {MID}^2 kmeans, rule_based and the resumed "
+              f"checkpoint equal theirs, launches "
+              + "; ".join(f"{k} { {a: n for a, n in launches[k].items() if n} }"
+                          for k in ("classify_large_kmeans",
+                                    "classify_large_rule_based",
+                                    "classify_large_rf_resumed")),
+              flush=True)
+        wall["classify_large_rf_6000"] = wall_s(rf_cli, TOOLS_REPS)[0]
+        for m in library:
+            wall[f"classify_large_{m}_{MID}"] = wall_s(large_cli(
+                mid_path, m, at(f"w_{m}.tif")), TOOLS_REPS)[0]
+
+        def checkpointed():
+            shutil.rmtree(at("ck_wall"), ignore_errors=True)
+            large_cli(mid_path, "random_forest", at("w_ck.tif"),
+                      "--checkpoint-dir", at("ck_wall"))()
+
+        wall[f"classify_large_rf_checkpointed_{MID}"] = wall_s(
+            checkpointed, TOOLS_REPS)[0]
+        del mid, pre_mid
+
+        # ---- 21e. tools.supervised on scene 0's stack
+        fmap = np.ascontiguousarray(stack0.transpose(1, 2, 0))
+        flat = stack0.reshape(stack0.shape[0], -1)
+        # rule_forest's first draw: 33 pixels, the bundled sample count
+        pick = np.random.default_rng(ForestConfig().seed).choice(
+            flat.shape[1], 33, replace=False)
+        samples = sampling.SampleSet()
+        for p, lab in zip(pick, rule_labels(stack0, pick)):
+            samples.add(p % WIDTH, p // WIDTH, lab)
+        samples_path, feats_path = at("samples.pkl"), at("features.npy")
+        samples.save(samples_path)
+        np.save(feats_path, fmap)
+        x, y = sampling.training_matrix_from_samples(samples_path, fmap)
+        forest_s, depth_s = supervised.train_random_forest_from_samples(x, y)
+        pred = run_counted("supervised_predict", lambda:
+                           supervised.predict_image(forest_s, depth_s, fmap,
+                                                    device=dev))
+        gf_s = GemmForest(*(t.to(dev) for t in _gemm_for(forest_s, 19)))
+        want = gemm_labels_cm(gf_s, torch.from_numpy(flat).to(dev)).reshape(
+            HEIGHT, WIDTH).cpu().numpy()
+        check(np.array_equal(pred, want) and launches["supervised_predict"][
+            "forest_labels"] == 1, f"predict_image equals gemm_labels_cm of "
+              f"its forest on the card, one forest_labels launch: "
+              f"{launches['supervised_predict']}")
+        grid = run_counted("supervised_grid", lambda:
+                           supervised.train_random_forest_grid(x, y,
+                                                               device=dev))
+        grid_cpu = supervised.train_random_forest_grid(x, y, device="cpu")
+        check(grid[2] == grid_cpu[2], f"train_random_forest_grid: card "
+              f"{grid[2]} against CPU {grid_cpu[2]}")
+        rep = run_counted("supervised_report", lambda:
+                          supervised.train_with_validation_report(
+                              x, y, device=dev))[2]
+        rep_cpu = supervised.train_with_validation_report(x, y,
+                                                          device="cpu")[2]
+        check(rep["accuracy"] == rep_cpu["accuracy"]
+              and rep["kappa"] == rep_cpu["kappa"]
+              and np.array_equal(rep["confusion_matrix"],
+                                 rep_cpu["confusion_matrix"]),
+              f"train_with_validation_report: card {rep['accuracy']}, "
+              f"{rep['kappa']} against CPU {rep_cpu['accuracy']}, "
+              f"{rep_cpu['kappa']}")
+
+        def write_class_map():
+            return supervised.train_predict_and_write(
+                samples_path, feats_path, at("supervised"), device=dev)
+
+        written = run_counted("supervised_write", write_class_map)
+        check(np.array_equal(np.load(at("supervised", "class_map.npy")),
+                             pred) and np.array_equal(written, pred),
+              "train_predict_and_write's class_map.npy equals predict_image")
+        print(f"tools [supervised]: 33 samples, {forest_s.feature.shape[0]} "
+              f"trees, predict_image equal to gemm_labels_cm on the card; "
+              f"grid {grid[2]} equal to the CPU's; validation accuracy "
+              f"{rep['accuracy']:.4f}, kappa {rep['kappa']:.4f} equal to the "
+              f"CPU's; class_map.npy equal", flush=True)
+        wall["supervised_predict_image"] = wall_s(
+            lambda: supervised.predict_image(forest_s, depth_s, fmap,
+                                             device=dev), TOOLS_REPS)[0]
+        wall["supervised_grid"] = wall_s(
+            lambda: supervised.train_random_forest_grid(x, y, device=dev),
+            TOOLS_REPS)[0]
+        wall["supervised_report"] = wall_s(
+            lambda: supervised.train_with_validation_report(x, y,
+                                                            device=dev),
+            TOOLS_REPS)[0]
+        wall["supervised_write"] = wall_s(write_class_map, TOOLS_REPS)[0]
+
+        # ---- 21f. rs-seg-torch-serve as a subprocess
+        port = free_port()
+        base = f"http://127.0.0.1:{port}"
+        log_path = at("serve.log")
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m",
+                 "rs_image_segmentation_tpu_torch.cli.serve_cli", "--model",
+                 npz, "--port", str(port), "--warmup",
+                 f"{HEIGHT}x{WIDTH}"], cwd=ROOT, stdout=log,
+                stderr=subprocess.STDOUT)
+        try:
+            t0 = time.perf_counter()
+            while True:
+                check(proc.poll() is None, "rs-seg-torch-serve exited: "
+                      + open(log_path).read()[-2000:])
+                try:
+                    hz = client.healthz(base, timeout=5)
+                    break
+                except OSError:
+                    check(time.perf_counter() - t0 < SERVE_START_S,
+                          "rs-seg-torch-serve did not answer: "
+                          + open(log_path).read()[-2000:])
+                    time.sleep(0.5)
+            serve_start = time.perf_counter() - t0
+            check(hz["ok"] and hz["backend"] == "cuda",
+                  f"/healthz reports the card: {hz}")
+            want0 = direct_b1(ten[0])
+            got_npy = client.classify_array(base, ten[0])
+            got_tif = client.classify_tiff(base, paths[0])
+            check(np.array_equal(got_npy, want0)
+                  and np.array_equal(got_tif, want0),
+                  "rs-seg-torch-serve: the npy and GeoTIFF maps equal "
+                  "classify_scenes_turbo at B = 1")
+            wall["serve_npy_request"] = wall_s(
+                lambda: client.classify_array(base, ten[0]), TOOLS_REPS)[0]
+            wall["serve_tiff_request"] = wall_s(
+                lambda: client.classify_tiff(base, paths[0]), TOOLS_REPS)[0]
+        finally:
+            proc.send_signal(signal.SIGINT)
+            try:
+                rc = proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                rc = None
+        check(rc == 0, f"rs-seg-torch-serve stopped on SIGINT (exit code "
+              f"{rc})")
+        print(f"tools [rs-seg-torch-serve]: answered /healthz {hz} "
+              f"{serve_start:.1f} s after start (build and warm-up "
+              f"included); npy and GeoTIFF maps equal the direct program; "
+              f"stopped, exit code {rc}", flush=True)
+
+        # ---- 21g. utils: a trace, the stage timer, the guards
+        scenes_d = torch.from_numpy(scenes).to(dev)
+        luts = np.stack([build_stretch_stats(s, cal.gains, cal.biases)[0]
+                         for s in scenes]).astype(np.uint8)
+        luts_d = torch.from_numpy(luts).to(dev)
+        # a trace of a few short calls has come back empty on the card
+        # (tools/kernel_times.py::launched_kernels): spin the card first,
+        # and trace again with twice the batches while no lane shows both
+        for tries in range(3):
+            with device_trace(at("trace", str(tries))):
+                if dev.type == "cuda":
+                    torch.cuda._sleep(1_000_000)
+                for _ in range(1 << tries):
+                    turbo.classify_scenes_turbo(scenes_d, luts_d, gf, cfg,
+                                                device=dev)
+            events = traceview.device_exec_events(at("trace", str(tries)))
+            lanes = traceview.device_exec_intervals(at("trace", str(tries)))
+            cuda_lane = [k for k, evs in events.items()
+                         if k.startswith("cuda:")
+                         and any("lut_hist" in n for *_, n in evs)
+                         and any("forest_labels" in n for *_, n in evs)]
+            if cuda_lane:
+                break
+        check(bool(cuda_lane), f"device_exec_intervals finds a CUDA lane "
+              f"with lut_hist and forest_labels: "
+              f"{ {k: len(v) for k, v in lanes.items()} }")
+        timer = StageTimer()
+        box = {}
+        with timer.stage("preamble", sync=box):
+            box["parts"] = turbo._preamble(scenes_d, luts_d)
+        with timer.stage("stack", sync=box):
+            box["stacks"] = turbo._stack_cm_from_parts(*box["parts"], cfg)
+        with timer.stage("forest", sync=box):
+            box["labels"] = forest_labels(gf, box["stacks"].reshape(
+                len(scenes), 19, -1))
+        report = timer.report()
+        check(all(s in report for s in ("preamble", "stack", "forest",
+                                        "total")), report)
+        guard = {}
+        for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            x1 = torch.tensor([1.0, 2.0], device=device)
+            for label, fn in (
+                    ("log(-1)", lambda: torch.log(-x1)),
+                    ("1/0", lambda: 1.0 / (x1 - x1)),
+                    ("preprocess_bands", lambda: preprocess_bands(
+                        ten[0], cal.gains, cal.biases, device=device)),
+                    ("preprocess_bands 16-bit", lambda: preprocess_bands(
+                        dn16(ten[0]), cal.gains, cal.biases, device=device)),
+                    ("hierarchical_stack_fused", lambda:
+                     hierarchical_stack_fused(preprocess_bands(
+                         ten[0], cal.gains, cal.biases, device=device
+                     ).float(), cfg, device=device))):
+                try:
+                    guards.checked(fn)()
+                    guard[(where, label)] = "pass"
+                except guards.CheckError as e:
+                    guard[(where, label)] = f"raise: {e}"
+        check(all(guard[("card", k)].startswith("raise")
+                  for k in ("log(-1)", "1/0")), f"checked raises on log(-1) "
+              f"and 1/0 on CUDA tensors: {guard}")
+        check(all(guard[("card", k)] == guard[("cpu", k)]
+                  for _, k in guard), f"checked passes or raises on the card "
+              f"exactly where on the CPU: {guard}")
+        print(f"tools [utils]: device_trace lanes "
+              f"{ {k: len(v) for k, v in lanes.items() if k.startswith('cuda')} }"
+              f", lut_hist and forest_labels on {cuda_lane}; StageTimer "
+              f"{dict((k, round(v * 1e3, 3)) for k, v in timer.timings.items())}"
+              f" ms; checked on the card "
+              f"{ {k: v.split(':')[0] for (w, k), v in guard.items() if w == 'card'} }"
+              f", the same on the CPU", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"tools wall s (median of {TOOLS_REPS} after a warm-up): "
+          f"{ {k: round(v, 4) for k, v in wall.items()} }; {smi}", flush=True)
+    for row in rows:
+        row["launches_tools_cli"] = {name: launches[name].get(row["name"], 0)
+                                     for name in launches}
+    out.update(launches=launches, wall_s=wall, batch_streamed_card_cpu=agree16,
+               supervised_grid_cv_scores={str(k): v for k, v in
+                                          grid[2]["cv_scores"].items()},
+               supervised_validation={"accuracy": rep["accuracy"],
+                                      "kappa": rep["kappa"]},
+               serve_start_s=serve_start, stage_timer_ms={
+                   k: v * 1e3 for k, v in timer.timings.items()},
+               trace_cuda_lanes=cuda_lane,
+               guards={f"{w}: {k}": v for (w, k), v in guard.items()})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3038,6 +3604,9 @@ def main() -> int:
     print(json.dumps({"serving": serving}))
     files = file_pipeline_phase(scenes[0], dev, smi, rows)
     print(json.dumps({"file_pipeline": files}))
+    tools = tools_cli_phase(dev, cfg, scenes, flat_forest, depth, gf, stack0,
+                            smi, rows)
+    print(json.dumps({"tools_cli": {**tools, "card": smi}}))
     print(f"chip_smoke: every check passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(smi)

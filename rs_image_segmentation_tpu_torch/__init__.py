@@ -37,7 +37,13 @@ Ported so far:
   ``pipeline.preprocess``, ``features``, ``classify`` and ``evaluate``
   with their writers and plots, ``io.artifacts`` (the stage-2 files),
   ``pipeline.visualize``, ``ops.features_aux``, ``core.types.Raster`` and
-  ``cli.stages``'s ``stage1`` … ``stage4``.
+  ``cli.stages``'s ``stage1`` … ``stage4``;
+* the tools and the rest of the CLI: ``tools.sampling``,
+  ``tools.supervised``, ``tools.batch`` (the batch workflow's turbo and
+  streamed branches), ``utils.guards``, ``utils.timing``,
+  ``utils.traceview``, ``utils.plotting``, ``cli.tools_cli``,
+  ``cli.serve_cli`` and ``cli.stages``'s ``classify_large`` and
+  ``batch_classify``.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
 no CUDA device and no explicit device they raise (``backend.py``).

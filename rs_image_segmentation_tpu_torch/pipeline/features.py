@@ -54,14 +54,16 @@ def _minmax(x: torch.Tensor) -> torch.Tensor:
 
 def morphological_features(band01: torch.Tensor, kernel_sizes=(3, 5, 7)
                            ) -> Dict[str, torch.Tensor]:
-    """uint8 erode, dilate, open, close and gradient per kernel size, /255."""
+    """uint8 erode, dilate, open, close and gradient per kernel size, times
+    1/255: XLA compiles the JAX package's ``x / 255.0`` so, and a forest
+    threshold can sit exactly on a level k / 255 (so in the stack below)."""
     u8 = _u8(band01)
     out = {}
     for k in kernel_sizes:
         for name, fn in (("erosion", erode), ("dilation", dilate),
                          ("opening", opening), ("closing", closing),
                          ("gradient", gradient)):
-            out[f"{name}_{k}"] = fn(u8, k).to(torch.float32) / 255.0
+            out[f"{name}_{k}"] = fn(u8, k).to(torch.float32) * (1.0 / 255.0)
     return out
 
 
@@ -69,10 +71,10 @@ def filter_responses(band01: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Gaussian 5 and 15, DoG, Laplacian and Sobel magnitude of the
     uint8-quantized band."""
     u8 = _u8(band01)
-    g5 = gaussian_blur_u8(u8, 5).to(torch.float32) / 255.0
-    g15 = gaussian_blur_u8(u8, 15).to(torch.float32) / 255.0
-    lap = laplacian(u8.to(torch.float32)) / 255.0
-    smag = sobel_magnitude(u8.to(torch.float32)) / 255.0
+    g5 = gaussian_blur_u8(u8, 5).to(torch.float32) * (1.0 / 255.0)
+    g15 = gaussian_blur_u8(u8, 15).to(torch.float32) * (1.0 / 255.0)
+    lap = laplacian(u8.to(torch.float32)) * (1.0 / 255.0)
+    smag = sobel_magnitude(u8.to(torch.float32)) * (1.0 / 255.0)
     return {"gaussian_5": g5, "gaussian_15": g15, "dog": _minmax(g5 - g15),
             "laplacian": _minmax(lap),
             "sobel_mag": smag / (torch.max(smag) + 1e-10)}
@@ -188,11 +190,11 @@ def hierarchical_stack_fused(bands,
     tex01 = texture_band(bands, cfg)
     glcm = glcm_features(tex01, cfg)
     u8 = _u8(tex01)
-    grad5 = gradient(u8, 5).to(torch.float32) / 255.0
+    grad5 = gradient(u8, 5).to(torch.float32) * (1.0 / 255.0)
     mean5 = box_filter(tex01, 5)
     std5 = torch.sqrt(torch.clamp_min(box_filter(tex01 * tex01, 5)
                                       - mean5 * mean5, 0.0))
-    smag = sobel_magnitude(u8.to(torch.float32)) / 255.0
+    smag = sobel_magnitude(u8.to(torch.float32)) * (1.0 / 255.0)
     smag = smag / (torch.max(smag) + 1e-10)
     return assemble(idx, pca_imgs[0], glcm, grad5, std5, smag,
                     cfg.context.window_size)["all"]

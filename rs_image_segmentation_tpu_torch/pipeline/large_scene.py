@@ -359,7 +359,9 @@ def _tile_globals(tile: torch.Tensor, p_lo, p_hi, med, iqr, tex_lo, tex_hi,
                           p_hi[tb:tb + 1])[0]
     tex = _tex01(nir, tex_lo, tex_hi)
     u8 = (tex * 255.0).to(torch.uint8)
-    smax = torch.amax(sobel_magnitude(u8.to(torch.float32)) / 255.0)
+    # x * (1/255): XLA compiles the JAX package's x / 255.0 so, and a
+    # forest threshold can sit exactly on a level k / 255
+    smax = torch.amax(sobel_magnitude(u8.to(torch.float32)) * (1.0 / 255.0))
     if glcm_rows > 0:
         con, hom = _tile_glcm_grid(tex[lo:lo + rows], levels, window, step,
                                    angles)
@@ -537,11 +539,11 @@ def _stack_tile_cm(tile: torch.Tensor, row0: int, gd: dict, *, lo: int,
                        gd["pca_comp1"])
     tex = _tex01(bands01[tb], gd["tex_lo"], gd["tex_hi"])
     u8 = (tex * 255.0).to(torch.uint8)
-    grad5 = gradient(u8, 5).to(torch.float32) / 255.0
+    grad5 = gradient(u8, 5).to(torch.float32) * (1.0 / 255.0)
     mean5 = box_filter(tex, 5)
     std5 = torch.sqrt(torch.clamp_min(box_filter(tex * tex, 5)
                                       - mean5 * mean5, 0.0))
-    smag = sobel_magnitude(u8.to(torch.float32)) / 255.0 / gd["smax"]
+    smag = sobel_magnitude(u8.to(torch.float32)) * (1.0 / 255.0) / gd["smax"]
     level_1 = torch.stack([idx["ndwi"], idx["mndwi"], idx["ndvi"],
                            idx["evi"], idx["ndbi"], idx["bsi"], pc1])
     ctx = box_filter(level_1, 7, border="reflect")

@@ -153,11 +153,13 @@ def _stack_cm_from_parts(stretched_f32: torch.Tensor, hist: torch.Tensor,
                              cfg.glcm.step_size, cfg.glcm.distances,
                              cfg.glcm.angles)
     u8t = (tex01 * 255.0).to(torch.uint8)
-    grad5 = gradient(u8t, 5).to(torch.float32) / 255.0
+    # x * (1/255): XLA compiles the JAX package's x / 255.0 so, and a
+    # forest threshold can sit exactly on a level k / 255
+    grad5 = gradient(u8t, 5).to(torch.float32) * (1.0 / 255.0)
     mean5 = box_filter(tex01, 5)
     std5 = torch.sqrt(torch.clamp_min(box_filter(tex01 * tex01, 5)
                                       - mean5 * mean5, 0.0))
-    smag = sobel_magnitude(u8t.to(torch.float32)) / 255.0
+    smag = sobel_magnitude(u8t.to(torch.float32)) * (1.0 / 255.0)
     smag = smag / (torch.amax(smag, dim=(-2, -1), keepdim=True) + 1e-10)
 
     level_1 = torch.stack([idx["ndwi"], idx["mndwi"], idx["ndvi"],

@@ -1,0 +1,133 @@
+"""Multi-scene batch workflow: classify N scenes on the card and emit a
+GeoTIFF + accuracy report per scene (BASELINE config #5).
+
+Counterpart of ``rs_image_segmentation_tpu.tools.batch``, with two
+branches:
+
+* turbo: uniform uint8 scenes and a forest within ``GEMM_MAX_LEAVES`` go
+  through ``pipeline.turbo.classify_scenes_turbo`` in sub-batches of 8,
+  one launch of each of the CUDA kernels ``lut_hist`` and
+  ``forest_labels`` per sub-batch. The host inputs are the exact stretch
+  LUTs of ``pipeline.preprocess.build_stretch_lut``, as the JAX package
+  builds them (the preamble then counts the stretched histogram on the
+  card; ``build_stretch_stats``'s params and host histogram, as serving
+  passes them, give the same maps).
+* streamed: any other batch runs one scene at a time through
+  ``preprocess_bands``, ``hierarchical_stack_fused`` and
+  ``models.forest.forest_predict``, which takes ``forest_labels`` within
+  the leaf cap and the level traversal past it.
+
+Two departures from the JAX function:
+
+* The JAX turbo branch pads a trailing partial sub-batch to 8 scenes so
+  that it reuses the compiled TPU program. Eager PyTorch compiles nothing,
+  and the stack is batch-invariant on the card, so the partial group runs
+  at its real size.
+* The JAX streamed branch reads ``_gemm_for(forest).path`` and so raises
+  ``AttributeError`` for a forest past ``GEMM_MAX_LEAVES``, though its
+  comment sends such forests there; here ``forest_predict`` walks the
+  trees, as serving's fallback does.
+
+The JAX ``mesh`` parameter (scenes sharded over a device mesh) waits for
+the port of ``parallel/``.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..backend import DeviceLike, resolve_device
+from ..core.config import CalibrationConfig, FeatureStageConfig
+from ..io.tiff import read_tiff, write_tiff
+from ..models.forest import _gemm_for, forest_predict
+from ..pipeline.evaluate import evaluate_classification
+from ..pipeline.features import hierarchical_stack_fused
+from ..pipeline.preprocess import build_stretch_lut, preprocess_bands
+from ..pipeline.turbo import classify_scenes_turbo
+
+SUB_BATCH = 8   # scenes per turbo program: a (B, 19, H, W) f32 stack each
+
+
+def run_batch_workflow(
+    scene_paths: Sequence[str],
+    forest,
+    depth: int,
+    output_dir: str,
+    roi_paths: Optional[Sequence[Optional[str]]] = None,
+    cal: CalibrationConfig = CalibrationConfig(),
+    cfg: FeatureStageConfig = FeatureStageConfig(),
+    device: DeviceLike = None,
+) -> List[Dict]:
+    """Classify every scene on ``device`` (CUDA unless named); returns
+    per-scene result dicts (path, class map path, metrics when a ROI was
+    given)."""
+    dev = resolve_device(device)
+    os.makedirs(output_dir, exist_ok=True)
+    if roi_paths and len(roi_paths) != len(scene_paths):
+        raise ValueError(f"{len(roi_paths)} roi_paths for "
+                         f"{len(scene_paths)} scenes")
+    roi_paths = roi_paths or [None] * len(scene_paths)
+    gains = np.asarray(cal.gains)
+    biases = np.asarray(cal.biases)
+
+    scenes = []
+    metas = []
+    for p in scene_paths:
+        arr, info = read_tiff(p)
+        scenes.append(arr)
+        metas.append(info.meta)
+
+    shapes = {a.shape for a in scenes}
+    gf = (_gemm_for(forest, 19)
+          if len(shapes) == 1 and all(a.dtype == np.uint8 for a in scenes)
+          else None)
+    pending = []
+    if gf is not None:
+        for i in range(0, len(scenes), SUB_BATCH):
+            group = scenes[i:i + SUB_BATCH]
+            luts = np.stack([build_stretch_lut(a, gains, biases)
+                             for a in group]).astype(np.uint8)
+            pending.append(classify_scenes_turbo(np.stack(group), luts, gf,
+                                                 cfg, device=dev))
+        # drain once: the sub-batches queue on the card back to back
+        preds = [m for maps in pending for m in maps.cpu().numpy()]
+    else:
+        for arr in scenes:
+            pre = preprocess_bands(arr, gains, biases, device=dev)
+            stack = hierarchical_stack_fused(pre.to(torch.float32), cfg,
+                                             device=dev)
+            pred = forest_predict(forest, stack.reshape(-1, stack.shape[-1]),
+                                  depth)
+            pending.append((pred, stack.shape[:2]))
+        preds = [p.cpu().numpy().reshape(shp) for p, shp in pending]
+
+    results: List[Dict] = []
+    seen_stems: Dict[str, int] = {}
+    for i, (path, pred, meta) in enumerate(zip(scene_paths, preds, metas)):
+        stem = os.path.splitext(os.path.basename(path))[0]
+        # disambiguate duplicate basenames (e.g. same-named scenes from
+        # different directories) so outputs never overwrite each other
+        n = seen_stems.get(stem, 0)
+        seen_stems[stem] = n + 1
+        if n:
+            stem = f"{stem}_{n}"
+        out_tif = os.path.join(output_dir, f"{stem}_class_map.tif")
+        write_tiff(out_tif, pred.astype(np.uint8)[None], meta,
+                   compression="lzw", tiled=True)
+        entry = {"scene": path, "class_map": out_tif}
+        if roi_paths[i]:
+            roi = (np.load(roi_paths[i]) if roi_paths[i].endswith(".npy")
+                   else read_tiff(roi_paths[i])[0][0])
+            m = evaluate_classification(pred, roi, device=dev)
+            entry["overall_accuracy"] = m["overall_accuracy"]
+            entry["kappa"] = m["kappa"]
+            with open(os.path.join(output_dir, f"{stem}_report.txt"),
+                      "w") as f:
+                f.write(f"scene: {path}\nOA: {m['overall_accuracy']:.4f}\n"
+                        f"Kappa: {m['kappa']:.4f}\n")
+        results.append(entry)
+    return results
