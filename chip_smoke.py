@@ -9,9 +9,11 @@ forest predict and stage 4's metrics; the tiled large-scene pipeline
 (supervised, streamed, KMeans, resumable) on 7 x 6000 x 6000 scenes;
 the serving engine with its HTTP server on 7 x 600 x 600 requests;
 the four-stage file pipeline (GeoTIFF -> stage 1 -> stage 2 artifacts ->
-stage 3 maps -> stage 4 report) on one 7 x 600 x 600 scene; and the
-tools and the rest of the CLI (batch workflow, batch and large-scene
-CLIs, the supervised tools, the server as a subprocess, the utils).
+stage 3 maps -> stage 4 report) on one 7 x 600 x 600 scene; the tools
+and the rest of the CLI (batch workflow, batch and large-scene CLIs, the
+supervised tools, the server as a subprocess, the utils); and
+``parallel/`` on ``torch.distributed`` (a one-rank NCCL group, two gloo
+ranks on the card, the rehearsal CLI, stage pipelining on two streams).
 
 Phases, in order; any failed check raises and the script exits non-zero:
   1. the card (nvidia-smi name and power limit); build every CUDA kernel
@@ -202,15 +204,41 @@ Phases, in order; any failed check raises and the script exits non-zero:
      as on the CPU); launch counts around each route, and host wall times
      (median of 3 after a warm-up); it prints a ``{"tools_cli": ...}``
      line;
+ 22. ``parallel/`` on ``torch.distributed`` at full width (the batch,
+     the path's forest, the default configuration, phase 18's
+     7 x 6000 x 6000 tiling): in a one-rank NCCL group here,
+     ``classify_batch_multihost`` bit-equal to phase 5's maps,
+     ``sharded_method_batch`` (rule, KMeans) to the batch programs, the
+     DP and TP forests to ``forest_predict`` / ``gemm_forest_predict``,
+     ``sharded_hierarchical_stack`` to ``hierarchical_stack``,
+     ``sharded_kmeans_fit_predict`` within ``CARD_CPU_KAPPA_MARGIN`` of
+     its CPU run by mapped kappa, ``sharded_classify_scene`` and
+     ``classify_large_scene_sharded`` >= 99.9 % of the monolithic
+     programs, ``run_batch_workflow(mesh=...)`` on ten GeoTIFFs byte-equal
+     to ``mesh=None`` (two 16-bit ones too); the same calls in a
+     two-rank gloo group with both ranks on this card (this script,
+     spawned with ``--parallel-rank``), each rank's result bit-equal to
+     the one-rank group's, with the bytes the ring staged through the
+     host; ``rs-seg-torch-multihost-rehearse`` as processes (gloo even
+     and uneven exit 0, an injected failure and NCCL at two ranks on one
+     card fail with their reasons); ``pp_classify_scenes`` on two streams
+     equal to the serial maps, its stage-2 and forest kernels on two
+     lanes in each of three traces, with their overlap; launches around
+     every call, no plain version, host wall times (median of 3 after a
+     warm-up; the one-rank group's once the spawned processes are gone),
+     the 6000^2 call's peak memory; it prints a ``{"parallel": ...}``
+     line;
  then the card's line, the kernels' JSON line and the result line.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs no
-network and no arguments; the kernel build goes to
+network and no arguments (``--parallel-rank`` is phase 22's own rank
+entry); the kernel build goes to
 ``rs_image_segmentation_tpu_torch/_build/``.
 """
 
 from __future__ import annotations
 
+import filecmp
 import json
 import os
 import statistics
@@ -3305,6 +3333,510 @@ def tools_cli_phase(dev, cfg, scenes, flat_forest, depth, gf, stack0, smi,
     return out
 
 
+PARALLEL_REPS = 3                  # walls: median of 3 after a warm-up
+PARALLEL_TIMEOUT_S = 420           # a spawned rank or rehearsal, at most
+# the rehearsal CLI's runs (rs-seg-torch-multihost-rehearse as a process):
+# name -> (arguments, environment, whether it must pass)
+REHEARSALS = {
+    "gloo_even": (["--nproc", "2", "--backend", "gloo"], {}, True),
+    "gloo_uneven": (["--nproc", "2", "--backend", "gloo", "--mode",
+                     "uneven"], {}, True),
+    "gloo_fail_pid_1": (["--nproc", "2", "--backend", "gloo"],
+                        {"RS_SEG_MULTIHOST_FAIL_PID": "1"}, False),
+    "nccl_two_ranks": (["--nproc", "2", "--backend", "nccl"], {}, False),
+}
+
+def parallel_inputs(tmp: str, dev, cfg, scenes, luts, gf_cpu, flat_forest,
+                    depth, stack0) -> dict:
+    """Phase 22's inputs, written to ``tmp`` for the spawned ranks (the
+    6000^2 scene as a .npy they map) and returned."""
+    from rs_image_segmentation_tpu_torch.core.config import CalibrationConfig
+    from rs_image_segmentation_tpu_torch.io.tiff import write_tiff
+    from rs_image_segmentation_tpu_torch.pipeline import large_scene as ls
+    from rs_image_segmentation_tpu_torch.pipeline import turbo
+    from rs_image_segmentation_tpu_torch.pipeline.preprocess import (
+        build_stretch_stats)
+    from rs_image_segmentation_tpu_torch.tools.fixtures import (
+        synthetic_geometa, synthetic_scenes)
+    cal = CalibrationConfig()
+    big = reflected_tiling(scenes[0], LARGE)
+    pre_big = stretch(big, build_stretch_stats(big, cal.gains, cal.biases)[0]
+                      .astype(np.uint8))
+    np.save(os.path.join(tmp, "pre_big.npy"), pre_big)
+    xk = turbo.kmeans_features(torch.from_numpy(scenes[:1]).to(dev),
+                               torch.from_numpy(luts[:1]).to(dev), cfg).cpu()
+    inp = {"scenes": scenes, "luts": luts,
+           "x_rows": np.ascontiguousarray(stack0.reshape(19, -1).T),
+           "xk": np.ascontiguousarray(
+               xk[0, :, ::KMEANS_STRIDE].T.numpy()),
+           "pre0": stretch(scenes[0], luts[0]),
+           "hists": ls.band_histograms_u8(pre_big),
+           "depth": np.array(depth),
+           **{f"gf_{k}": v.numpy() for k, v in gf_cpu._asdict().items()},
+           **{f"ff_{k}": v.numpy() for k, v in
+              flat_forest._asdict().items()}}
+    np.savez(os.path.join(tmp, "inputs.npz"), **inp)
+    ten = np.concatenate([scenes, synthetic_scenes(
+        TOOLS_SCENES - len(scenes), HEIGHT, WIDTH, seed=SEED + 50)])
+    meta = synthetic_geometa((HEIGHT, WIDTH))
+    paths = {"u8": [], "u16": []}
+    os.makedirs(os.path.join(tmp, "in"))
+    for i, s in enumerate(ten):
+        paths["u8"].append(os.path.join(tmp, "in", f"scene{i}.tif"))
+        write_tiff(paths["u8"][-1], s, meta)
+    for i in range(2):
+        paths["u16"].append(os.path.join(tmp, "in", f"dn16_{i}.tif"))
+        write_tiff(paths["u16"][-1], dn16(ten[i]), meta)
+    with open(os.path.join(tmp, "paths.json"), "w") as f:
+        json.dump(paths, f)
+    inp.update(pre_big=pre_big, paths=paths)
+    return inp
+
+
+def load_parallel_inputs(tmp: str) -> dict:
+    inp = dict(np.load(os.path.join(tmp, "inputs.npz")))
+    inp["pre_big"] = np.load(os.path.join(tmp, "pre_big.npy"), mmap_mode="r")
+    with open(os.path.join(tmp, "paths.json")) as f:
+        inp["paths"] = json.load(f)
+    return inp
+
+
+def parallel_calls(inp: dict, dev, cfg, tmp: str, tag: str):
+    """Phase 22's calls over meshes of the current group on ``dev``, each
+    run once with its launches and plain calls counted around it (no
+    plain version may run): ``(results, launches, calls)``, each keyed by
+    call; a result is this rank's block as numpy (the TP, DP-forest and
+    large-scene results whole), a call the thunk to time (every rank of
+    the group times the same calls in the same order)."""
+    from rs_image_segmentation_tpu_torch.models import forest as tforest
+    from rs_image_segmentation_tpu_torch.parallel import (forest_tp,
+                                                          multihost, sharded,
+                                                          spatial)
+    from rs_image_segmentation_tpu_torch.parallel.mesh import (
+        data_sharding, make_mesh)
+    from rs_image_segmentation_tpu_torch.tools.batch import (
+        run_batch_workflow)
+
+    def fields(prefix):
+        return {k[len(prefix):]: inp[k] for k in inp
+                if k.startswith(prefix)}
+
+    gf = tforest.gemm_forest_from_numpy(fields("gf_"), device=dev)
+    flat = tforest.flat_forest_from_numpy(fields("ff_"))
+    depth = int(inp["depth"])
+    data = make_mesh(axis_names=("data",), device=dev)
+    tile = make_mesh(axis_names=("tile",), device=dev)
+    model = make_mesh(axis_names=("model",), device=dev)
+    block = data_sharding(data, 4).block
+    scenes, luts = inp["scenes"], inp["luts"]
+    res, launches, thunks = {}, {}, {}
+
+    def run(name, fn):
+        (res[name], calls), launches[name] = counted(
+            lambda: plain_calls(fn))
+        thunks[name] = fn
+        check(not any(calls.values()), f"phase 22 [{tag}] {name}: no plain "
+              f"version on the card: {calls}")
+
+    def host(t):
+        return t.cpu().numpy()
+
+    run("classify_batch_multihost", lambda: multihost.classify_batch_multihost(
+        block(scenes), block(luts), gf, cfg, data))
+    run("method_rule", lambda: host(sharded.sharded_method_batch(
+        scenes, luts, data, "rule_based", cfg)))
+    run("method_kmeans", lambda: host(sharded.sharded_method_batch(
+        scenes, luts, data, "kmeans", cfg, n_clusters=KMEANS_K,
+        seed=KMEANS_SEED, fit_stride=KMEANS_STRIDE)))
+    run("forest_dp", lambda: host(sharded.sharded_forest_predict(
+        flat, inp["x_rows"], depth, data)))
+    run("forest_tp", lambda: host(forest_tp.tp_forest_predict(
+        gf, inp["x_rows"], model)))
+    run("kmeans_fit", lambda: tuple(host(t) for t in
+                                    sharded.sharded_kmeans_fit_predict(
+                                        inp["xk"], KMEANS_K, data,
+                                        seed=KMEANS_SEED)))
+    run("stack_dp", lambda: host(sharded.sharded_hierarchical_stack(
+        scenes[:2].astype(np.float32), data, cfg)))
+    run("spatial_scene", lambda: host(spatial.sharded_classify_scene(
+        inp["pre0"], gf, tile)))
+    run("spatial_large", lambda: spatial.classify_large_scene_sharded(
+        inp["pre_big"], gf, tile, hists=inp["hists"]))
+    for name, key in (("batch_workflow", "u8"),
+                      ("batch_workflow_16bit", "u16")):
+        run(name, lambda key=key: run_batch_workflow(
+            inp["paths"][key], flat, depth,
+            os.path.join(tmp, f"{key}_{tag}"), mesh=data, cfg=cfg))
+    return res, launches, thunks
+
+
+def parallel_walls(thunks: dict) -> dict:
+    """Host wall seconds of each call: ``{name: (median, runs)}`` over
+    ``PARALLEL_REPS`` runs after a warm-up (:func:`wall_s`)."""
+    return {name: wall_s(fn, PARALLEL_REPS) for name, fn in thunks.items()}
+
+
+def parallel_rank(argv) -> int:
+    """One rank of phase 22's gloo group on the card: ``chip_smoke.py
+    --parallel-rank <rank> <world> <host:port> <dir>`` runs
+    :func:`parallel_calls` and a CPU KMeans fit over the same group, and
+    pickles its results to ``<dir>/rank<rank>.pkl``."""
+    import pickle
+
+    from rs_image_segmentation_tpu_torch.core.config import FeatureStageConfig
+    from rs_image_segmentation_tpu_torch.parallel import sharded
+    from rs_image_segmentation_tpu_torch.parallel.collectives import (
+        ppermute_ring)
+    from rs_image_segmentation_tpu_torch.parallel.mesh import make_mesh
+    from rs_image_segmentation_tpu_torch.parallel.multihost import (
+        init_multihost)
+    rank, world, address, tmp = (int(argv[0]), int(argv[1]), argv[2],
+                                 argv[3])
+    dev = init_multihost(address, world, rank, backend="gloo",
+                         device="cuda")
+    cfg = FeatureStageConfig()
+    inp = load_parallel_inputs(tmp)
+    res, launches, thunks = parallel_calls(inp, dev, cfg, tmp, f"w{world}")
+    staged = ppermute_ring.staged_bytes     # the calls' first runs
+    wall = {k: v[0] for k, v in parallel_walls(thunks).items()}
+    cpu = make_mesh(axis_names=("data",), device="cpu")
+    labels_cpu, _ = sharded.sharded_kmeans_fit_predict(
+        inp["xk"], KMEANS_K, cpu, seed=KMEANS_SEED)
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump({"res": res, "launches": launches, "wall": wall,
+                     "kmeans_cpu": labels_cpu.numpy(), "device": str(dev),
+                     "staged_bytes": staged}, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def parallel_phase(dev, cfg, scenes, luts, gf, gf_cpu, flat_forest, depth,
+                   stack0, main_labels, smi, rows) -> dict:
+    """Phase 22: ``parallel/`` on the card at full width (600 x 600
+    scenes, the default ``FeatureStageConfig``, the path's 100-tree
+    forest, the 7 x 6000 x 6000 tiling of phase 18): the calls of
+    :func:`parallel_calls` in a one-rank NCCL group here, each held to its
+    library program, and in a two-rank gloo group with both ranks on this
+    card (spawned), each rank's result bit-equal to the one-rank group's
+    (the KMeans fit: mapped kappa within ``CARD_CPU_KAPPA_MARGIN`` of its
+    CPU run); ``pp_classify_scenes`` on two streams, equal to the serial
+    maps, the two stages' kernels on two lanes of each of three traces,
+    with their overlap; ``rs-seg-torch-multihost-rehearse`` as a process
+    (gloo even and uneven pass, an injected failure and NCCL at two ranks
+    on one card fail with their reasons). Launches of every call, host
+    wall seconds of every call (median of 3 after a warm-up), the 6000^2
+    call's peak memory, the bytes the ring staged through the host. Adds
+    each kernel's launches to its row."""
+    import pickle
+    import shutil
+    import signal
+    import tempfile
+
+    from rs_image_segmentation_tpu_torch.models.forest import (
+        forest_predict, gemm_forest_predict)
+    from rs_image_segmentation_tpu_torch.models.kmeans import (
+        kmeans_fit_predict)
+    from rs_image_segmentation_tpu_torch.ops.kernels import forest_labels
+    from rs_image_segmentation_tpu_torch.parallel.collectives import (
+        ppermute_ring)
+    from rs_image_segmentation_tpu_torch.parallel.mesh import make_mesh
+    from rs_image_segmentation_tpu_torch.parallel.multihost import (
+        free_local_port)
+    from rs_image_segmentation_tpu_torch.parallel.pipeline_pp import (
+        pp_classify_scenes)
+    from rs_image_segmentation_tpu_torch.pipeline import large_scene as ls
+    from rs_image_segmentation_tpu_torch.pipeline import turbo
+    from rs_image_segmentation_tpu_torch.pipeline.evaluate import (
+        ClassificationEvaluator)
+    from rs_image_segmentation_tpu_torch.pipeline.features import (
+        hierarchical_stack, hierarchical_stack_fused)
+    from rs_image_segmentation_tpu_torch.tools.batch import (
+        run_batch_workflow)
+    from rs_image_segmentation_tpu_torch.utils import traceview
+    from rs_image_segmentation_tpu_torch.utils.timing import device_trace
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    procs = {}
+    out = {"card": smi}
+    try:
+        inp = parallel_inputs(tmp, dev, cfg, scenes, luts, gf_cpu,
+                              flat_forest, depth, stack0)
+        print(f"parallel: inputs in {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+        # ---- 22a. the rehearsal CLI and the two-rank group, spawned
+        env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        for name, (args, extra, _) in REHEARSALS.items():
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m",
+                 "rs_image_segmentation_tpu_torch.cli.multihost_cli",
+                 "--timeout", str(PARALLEL_TIMEOUT_S - 60)] + args,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                cwd=ROOT, env={**env, **extra}, start_new_session=True)
+        address = f"127.0.0.1:{free_local_port()}"
+        for r in range(2):
+            procs[f"rank{r}"] = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+                 str(r), "2", address, tmp], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True, cwd=ROOT, env=env,
+                start_new_session=True)
+
+        # ---- 22b. the one-rank NCCL group, here
+        mesh = make_mesh(axis_names=("data",), device=dev)
+        check(torch.distributed.get_backend() == "nccl"
+              and torch.distributed.get_world_size() == 1,
+              "a one-rank NCCL group on the card")
+        one, launches, thunks = parallel_calls(inp, dev, cfg, tmp, "w1")
+        ref = {
+            "classify_batch_multihost": main_labels.cpu().numpy(),
+            "method_rule": turbo.rule_based_scenes_turbo_batch(
+                scenes, luts, cfg, device=dev).cpu().numpy(),
+            "method_kmeans": turbo.kmeans_scenes_turbo_batch(
+                scenes, luts, KMEANS_K, cfg, seed=KMEANS_SEED,
+                fit_stride=KMEANS_STRIDE, device=dev).cpu().numpy(),
+            "forest_dp": forest_predict(flat_forest, torch.from_numpy(
+                inp["x_rows"]).to(dev), depth).cpu().numpy(),
+            "forest_tp": gemm_forest_predict(gf, torch.from_numpy(
+                inp["x_rows"]).to(dev)).cpu().numpy()}
+        for name, want in ref.items():
+            check(np.array_equal(one[name], want), f"phase 22 {name} "
+                  f"(one-rank NCCL) bit-equal to its library program")
+        for s in range(2):
+            check(np.array_equal(one["stack_dp"][s], hierarchical_stack(
+                scenes[s].astype(np.float32), cfg, device=dev).cpu().numpy()),
+                f"sharded_hierarchical_stack's scene {s} bit-equal to "
+                f"hierarchical_stack")
+        ev = ClassificationEvaluator(device=dev)
+        truth = one["method_rule"][0].reshape(1, -1)[:, ::KMEANS_STRIDE]
+        k_card = mapped_kappa(ev, one["kmeans_fit"][0][None] + 1, truth)
+        cpu_labels, _ = kmeans_fit_predict(torch.from_numpy(inp["xk"]),
+                                           KMEANS_K, KMEANS_SEED)
+        k_cpu = mapped_kappa(ev, cpu_labels.numpy()[None] + 1, truth)
+        check(abs(k_card - k_cpu) <= CARD_CPU_KAPPA_MARGIN,
+              f"sharded_kmeans_fit_predict mapped kappa {k_card:.6f} within "
+              f"{CARD_CPU_KAPPA_MARGIN} of its CPU run's {k_cpu:.6f}")
+        mono0 = gemm_forest_predict(gf, hierarchical_stack_fused(
+            inp["pre0"], cfg, device=dev).reshape(-1, 19)).reshape(
+            HEIGHT, WIDTH).cpu().numpy()
+        agree_scene = float((one["spatial_scene"] == mono0).mean())
+        check(agree_scene >= 0.999, f"sharded_classify_scene against "
+              f"hierarchical_stack_fused + forest: {agree_scene}")
+        mono_big = ls.classify_large_scene(inp["pre_big"], gf, cfg,
+                                           tile_rows=LARGE_TILE,
+                                           hists=inp["hists"], device=dev)
+        agree_large = float((one["spatial_large"] == mono_big).mean())
+        check(agree_large >= 0.999, f"classify_large_scene_sharded against "
+              f"classify_large_scene at {LARGE}^2: {agree_large}")
+        wf = {}
+        for key in ("u8", "u16"):
+            wf[key] = run_batch_workflow(inp["paths"][key], flat_forest,
+                                         depth, os.path.join(tmp, key),
+                                         cfg=cfg, device=dev)
+        for key, name in (("u8", "batch_workflow"),
+                          ("u16", "batch_workflow_16bit")):
+            check([e["scene"] for e in one[name]] == inp["paths"][key],
+                  f"{name}: every scene, in order")
+        wf_u8_equal = all(filecmp.cmp(a["class_map"], b["class_map"],
+                                      shallow=False)
+                          for a, b in zip(one["batch_workflow"], wf["u8"]))
+        check(wf_u8_equal, "run_batch_workflow(mesh) files byte-equal to "
+              "its mesh=None run (turbo route)")
+        wf_16_equal = all(filecmp.cmp(a["class_map"], b["class_map"],
+                                      shallow=False)
+                          for a, b in zip(one["batch_workflow_16bit"],
+                                          wf["u16"]))
+        check(wf_16_equal, "run_batch_workflow(mesh) files byte-equal to "
+              "its mesh=None run (streamed route, 16-bit DNs)")
+        print(f"parallel [one-rank NCCL]: every call equal to its library "
+              f"program; KMeans mapped kappa card {k_card:.6f} / CPU "
+              f"{k_cpu:.6f}; spatial {agree_scene:.6f} (600^2), "
+              f"{agree_large:.6f} ({LARGE}^2); workflow files byte-equal "
+              f"to mesh=None on both routes; launches {launches}",
+              flush=True)
+
+        # ---- 22c. the two-rank group and the rehearsals
+        logs = {}
+        for name, p in procs.items():
+            try:
+                logs[name] = p.communicate(timeout=PARALLEL_TIMEOUT_S)[0]
+            except subprocess.TimeoutExpired:
+                p.kill()
+                logs[name] = p.communicate()[0]
+                check(False, f"{name} timed out:\n{logs[name][-3000:]}")
+        for r in range(2):
+            check(procs[f"rank{r}"].returncode == 0, f"rank {r} of the "
+                  f"two-rank gloo group:\n{logs[f'rank{r}'][-4000:]}")
+        two = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                two.append(pickle.load(f))
+        check(all(t["device"] == "cuda:0" for t in two),
+              f"both ranks on cuda:0: {[t['device'] for t in two]}")
+        for r, t in enumerate(two):
+            for name in ("classify_batch_multihost", "method_rule",
+                         "method_kmeans", "stack_dp", "spatial_scene"):
+                lo = r * (len(one[name]) // 2)
+                check(np.array_equal(t["res"][name], one[name][
+                    lo:lo + len(t["res"][name])]), f"rank {r}'s {name} "
+                      f"bit-equal to the one-rank group's")
+            for name in ("forest_dp", "forest_tp", "spatial_large"):
+                check(np.array_equal(t["res"][name], one[name]),
+                      f"rank {r}'s {name} bit-equal to the one-rank group's")
+            for name in ("batch_workflow", "batch_workflow_16bit"):
+                check(all(filecmp.cmp(a["class_map"], b["class_map"],
+                                      shallow=False)
+                          for a, b in zip(t["res"][name], one[name])),
+                      f"rank {r}'s {name} files byte-equal to the one-rank "
+                      f"group's")
+        labels2 = np.concatenate([t["res"]["kmeans_fit"][0] for t in two])
+        labels2_cpu = np.concatenate([t["kmeans_cpu"] for t in two])
+        k2_card = mapped_kappa(ev, labels2[None] + 1, truth)
+        k2_cpu = mapped_kappa(ev, labels2_cpu[None] + 1, truth)
+        check(abs(k2_card - k2_cpu) <= CARD_CPU_KAPPA_MARGIN,
+              f"two-rank sharded_kmeans_fit_predict mapped kappa "
+              f"{k2_card:.6f} within {CARD_CPU_KAPPA_MARGIN} of its CPU "
+              f"run's {k2_cpu:.6f}")
+        staged = [t["staged_bytes"] for t in two]
+        check(all(s > 0 for s in staged), f"gloo staged the ring's CUDA rows "
+              f"through the host: {staged}")
+        print(f"parallel [two-rank gloo, both on cuda:0]: every rank's result "
+              f"bit-equal to the one-rank group's; KMeans mapped kappa card "
+              f"{k2_card:.6f} / CPU {k2_cpu:.6f}; ring bytes staged through "
+              f"the host {staged}; launches "
+              f"{[t['launches'] for t in two]}; wall s median of "
+              f"{PARALLEL_REPS} after a warm-up, each rank beside the other "
+              f"and the rehearsals {[round_values(t['wall']) for t in two]}",
+              flush=True)
+        rehearse = {}
+        for name, (_, _, must_pass) in REHEARSALS.items():
+            rc, log = procs[name].returncode, logs[name]
+            rehearse[name] = rc
+            if must_pass:
+                check(rc == 0 and "multihost rehearsal OK" in log,
+                      f"rehearsal {name} exits 0:\n{log[-3000:]}")
+            else:
+                check(rc != 0 and "multihost rehearsal FAILED" in log,
+                      f"rehearsal {name} fails loudly:\n{log[-3000:]}")
+        check("MULTIHOST_INJECTED_FAILURE 1" in logs["gloo_fail_pid_1"],
+              "the injected failure ran")
+        check("NCCL takes one CUDA device a rank" in logs["nccl_two_ranks"],
+              f"NCCL at two ranks on one card fails with its reason:\n"
+              f"{logs['nccl_two_ranks'][-3000:]}")
+        rehearse_launches = [json.loads(ln.split(" ", 1)[1]) for name in
+                             ("gloo_even", "gloo_uneven")
+                             for ln in logs[name].splitlines()
+                             if ln.startswith("MULTIHOST_LAUNCHES ")]
+        check(len(rehearse_launches) == 4
+              and all(d["lut_hist"] == 1 and d["forest_labels"] == 1
+                      for d in rehearse_launches),
+              f"each rehearsal rank launched lut_hist and forest_labels "
+              f"once: {rehearse_launches}")
+        print(f"parallel [rs-seg-torch-multihost-rehearse]: exit codes "
+              f"{rehearse}; rank launches {rehearse_launches}", flush=True)
+
+        # ---- 22d. pipelining on two streams of the card, once the spawned
+        # processes are gone (their contexts time-slice the card)
+        pre8 = [stretch(s, lt).astype(np.float32)
+                for s, lt in zip(scenes, luts)]
+
+        def serial():
+            return [forest_labels(gf, hierarchical_stack_fused(
+                p, cfg, device=dev).permute(2, 0, 1).reshape(19, -1)
+                .contiguous()).reshape(HEIGHT, WIDTH).cpu().numpy()
+                for p in pre8]
+
+        want = serial()
+        got, pp_launches = counted(lambda: pp_classify_scenes(pre8, gf, cfg))
+        check(all(np.array_equal(a, b) for a, b in zip(got, want)),
+              "pp_classify_scenes equal to the serial maps")
+        # whether the forest's kernel meets a stage-2 kernel on the card
+        # depends on how far the host runs ahead of it: three traces, each
+        # with its overlap reported
+        overlaps, lane_sets = [], []
+        for i in range(3):
+            trace = os.path.join(tmp, "pp_trace", str(i))
+            with device_trace(trace):
+                pp_classify_scenes(pre8, gf, cfg)
+            events = traceview.device_exec_events(trace)
+            lanes = traceview.device_exec_intervals(trace)
+            stage = [k for k, evs in events.items()
+                     if any("spectral_indices" in n or "glcm" in n
+                            for *_, n in evs)]
+            forest = [k for k, evs in events.items()
+                      if any("forest_labels" in n for *_, n in evs)]
+            summary = {k: (len(v), round(v[0][0]), round(v[-1][1]))
+                       for k, v in lanes.items() if v}
+            check(bool(stage) and bool(forest)
+                  and set(stage).isdisjoint(forest), f"trace {i}: stage 2 "
+                  f"and the forest on two stream lanes: stage {stage}, "
+                  f"forest {forest}; lanes {summary}")
+            lane_sets.append((stage, forest))
+            overlaps.append(traceview.total_cross_lane_overlap_us(
+                {stage[0]: lanes[stage[0]], forest[0]: lanes[forest[0]]}))
+        pp_s = wall_s(lambda: pp_classify_scenes(pre8, gf, cfg),
+                      PARALLEL_REPS)[0]
+        serial_s = wall_s(serial, PARALLEL_REPS)[0]
+        print(f"parallel [pp]: equal to the serial maps; lanes (stage 2, "
+              f"forest) {lane_sets}; overlap us in three traces "
+              f"{[round(o, 1) for o in overlaps]}; launches {pp_launches}; "
+              f"wall s median of {PARALLEL_REPS}: pipelined {pp_s:.4f}, "
+              f"serial {serial_s:.4f}", flush=True)
+
+        # ---- 22e. the one-rank group's calls timed alone, and the 6000^2
+        # call's peak memory
+        staged0 = ppermute_ring.staged_bytes
+        timed = parallel_walls(thunks)
+        wall = {k: v[0] for k, v in timed.items()}
+        large_s, large_runs = timed["spatial_large"]
+        _, large_peak = peak_gb(thunks["spatial_large"])
+        check(ppermute_ring.staged_bytes == staged0, "NCCL at one rank "
+              "stages nothing through the host")
+        print(f"parallel [one-rank NCCL, alone on the card]: wall s median "
+              f"of {PARALLEL_REPS} after a warm-up {round_values(wall)}; "
+              f"{LARGE}^2 classify_large_scene_sharded runs "
+              f"{[round(w, 4) for w in large_runs]}, peak "
+              f"{large_peak:.3f} GB; {smi}", flush=True)
+        torch.distributed.destroy_process_group()
+    finally:
+        # each process leads its own session: the rehearsals' ranks go too
+        for p in procs.values():
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    for row in rows:
+        row["launches_parallel"] = {
+            **{f"one_rank.{k}": v.get(row["name"], 0)
+               for k, v in launches.items()},
+            **{f"rank{r}.{k}": v.get(row["name"], 0)
+               for r, t in enumerate(two) for k, v in t["launches"].items()},
+            "pp_classify_scenes": pp_launches.get(row["name"], 0)}
+    out.update(
+        launches_one_rank=launches, launches_two_ranks=[t["launches"]
+                                                        for t in two],
+        launches_pp=pp_launches, launches_rehearsal=rehearse_launches,
+        wall_s_one_rank=wall, wall_s_two_ranks=[t["wall"] for t in two],
+        large_sharded_median_s=large_s, large_sharded_runs_s=large_runs,
+        large_sharded_peak_gb=large_peak, pp_wall_s=pp_s,
+        serial_wall_s=serial_s, pp_overlap_us=overlaps,
+        staged_bytes_two_ranks=staged, kmeans_kappa={
+            "one_rank_card": k_card, "one_rank_cpu": k_cpu,
+            "two_rank_card": k2_card, "two_rank_cpu": k2_cpu},
+        agreement={"spatial_scene": agree_scene,
+                   "spatial_large": agree_large},
+        rehearsal_exit_codes=rehearse,
+        phase_s=time.perf_counter() - t_phase)
+    return out
+
+
+def round_values(d: dict) -> dict:
+    return {k: round(v, 4) for k, v in d.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3607,6 +4139,9 @@ def main() -> int:
     tools = tools_cli_phase(dev, cfg, scenes, flat_forest, depth, gf, stack0,
                             smi, rows)
     print(json.dumps({"tools_cli": {**tools, "card": smi}}))
+    par = parallel_phase(dev, cfg, scenes, luts, gf, gf_cpu, flat_forest,
+                         depth, stack0, labels, smi, rows)
+    print(json.dumps({"parallel": par}))
     print(f"chip_smoke: every check passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(smi)
@@ -3618,4 +4153,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(parallel_rank(sys.argv[2:]))
     sys.exit(main())

@@ -5,7 +5,7 @@ The port imports neither JAX nor the JAX package; it keeps its own copies
 of the host-side numpy code it needs (configs, stretch tables, the CART
 trainer).
 
-Ported so far:
+Ported:
 * the supervised turbo path ``pipeline.turbo.classify_scenes_turbo`` —
   raw ``(B, 7, H, W)`` uint8 scenes -> stretch preamble (CUDA kernel
   ``lut_hist``) -> 19-channel channel-major stack -> forest labels (CUDA
@@ -43,7 +43,15 @@ Ported so far:
   streamed branches), ``utils.guards``, ``utils.timing``,
   ``utils.traceview``, ``utils.plotting``, ``cli.tools_cli``,
   ``cli.serve_cli`` and ``cli.stages``'s ``classify_large`` and
-  ``batch_classify``.
+  ``batch_classify``;
+* multi-device runs, ``parallel`` on ``torch.distributed`` (one process
+  a rank, one device a rank, local blocks and explicit collectives:
+  meshes, halo rings, the all-reduce KMeans fit, forest rows and leaves,
+  spatial sharding, stage pipelining, the multi-process rehearsal with
+  ``cli.multihost_cli``) and ``tools.batch.run_batch_workflow``'s
+  ``mesh``.
+
+Nothing of the JAX package is left unported.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
 no CUDA device and no explicit device they raise (``backend.py``).

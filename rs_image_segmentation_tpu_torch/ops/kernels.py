@@ -32,7 +32,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -233,27 +233,40 @@ lut_hist.launches = 0
 _CHUNK = 32768      # pixels per matmul block of the plain forest
 
 
-def gemm_totals_cm(gf, x_cm: torch.Tensor, chunk: int = _CHUNK
-                   ) -> torch.Tensor:
-    """Mean leaf distribution of each pixel of (F, N) f32 features ->
-    (C, N) f32, by matmuls over ``chunk``-pixel blocks: the feature pick
-    and the votes in f32 (exact: one-hot and +-1 operands), the
-    leaf-distribution sum in f64 rounded once to f32, so the totals do not
-    depend on the summation order (see ``csrc/forest_labels.cu``)."""
+def gemm_leaf_sums_cm(gf, x_cm: torch.Tensor, chunk: int = _CHUNK,
+                      scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The fired leaves' distributions of each pixel of (F, N) f32
+    features, summed in f64 -> (C, N) f64, by matmuls over ``chunk``-pixel
+    blocks: the feature pick and the votes in f32 (exact: one-hot and +-1
+    operands), the leaf-distribution sum in f64, exact for these
+    per-tree distributions in any order. With ``scale`` (f32), each
+    block's sums are rounded once to f32 and scaled as they come -> (C, N)
+    f32, so no f64 buffer of the whole output is held."""
     dev = x_cm.device
     sel_t = gf.selector.to(dev).T                       # (M, F)
     thr = gf.thresholds.to(dev)[:, None]
     path_t = gf.path.to(dev).T                          # (L, M)
     plen = gf.path_len.to(dev)[:, None]
     dist_t = gf.leaf_dist.to(dev, torch.float64).T      # (C, L)
-    inv = gf.inv_trees.to(dev)
-    out = torch.empty((dist_t.shape[0], x_cm.shape[1]), dtype=torch.float32,
-                      device=dev)
+    out = torch.empty((dist_t.shape[0], x_cm.shape[1]), device=dev,
+                      dtype=torch.float64 if scale is None else torch.float32)
     for s in range(0, x_cm.shape[1], chunk):
         sgn = torch.where(sel_t @ x_cm[:, s:s + chunk] <= thr, 1.0, -1.0)
         fired = (path_t @ sgn == plen).to(torch.float64)
-        out[:, s:s + chunk] = (dist_t @ fired).to(torch.float32) * inv
+        sums = dist_t @ fired
+        out[:, s:s + chunk] = (sums if scale is None
+                               else sums.to(torch.float32) * scale)
     return out
+
+
+def gemm_totals_cm(gf, x_cm: torch.Tensor, chunk: int = _CHUNK
+                   ) -> torch.Tensor:
+    """Mean leaf distribution of each pixel of (F, N) f32 features ->
+    (C, N) f32: :func:`gemm_leaf_sums_cm` rounded once to f32 a block, so
+    the totals do not depend on the summation order (see
+    ``csrc/forest_labels.cu``)."""
+    return gemm_leaf_sums_cm(gf, x_cm, chunk,
+                             scale=gf.inv_trees.to(x_cm.device))
 
 
 def gemm_labels_cm(gf, x_cm: torch.Tensor) -> torch.Tensor:

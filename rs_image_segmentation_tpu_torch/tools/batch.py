@@ -28,8 +28,17 @@ Two departures from the JAX function:
   comment sends such forests there; here ``forest_predict`` walks the
   trees, as serving's fallback does.
 
-The JAX ``mesh`` parameter (scenes sharded over a device mesh) waits for
-the port of ``parallel/``.
+``mesh`` (a ``parallel.mesh`` mesh, every rank calling with the same
+arguments): the scenes shard over its ``data`` axis. Each rank classifies
+its share (of each turbo sub-batch of ``8 x world`` scenes, or of the
+streamed list) and writes its own scenes' files, so the maps are those
+of ``mesh=None``. The result dicts are all-gathered, so every rank
+returns the whole list in scene order, as the JAX function returns it.
+With ``mesh=None`` the workflow runs on ``device`` alone. One departure:
+the JAX function sends a non-uint8 uniform batch through its
+single-controller ``sharded_hierarchical_stack`` after stretching the
+whole batch on the host; with one process a rank, each rank streams its
+own share instead.
 """
 
 from __future__ import annotations
@@ -39,11 +48,13 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..backend import DeviceLike, resolve_device
 from ..core.config import CalibrationConfig, FeatureStageConfig
 from ..io.tiff import read_tiff, write_tiff
 from ..models.forest import _gemm_for, forest_predict
+from ..parallel.mesh import block_bounds, mesh_device
 from ..pipeline.evaluate import evaluate_classification
 from ..pipeline.features import hierarchical_stack_fused
 from ..pipeline.preprocess import build_stretch_lut, preprocess_bands
@@ -58,14 +69,18 @@ def run_batch_workflow(
     depth: int,
     output_dir: str,
     roi_paths: Optional[Sequence[Optional[str]]] = None,
+    mesh=None,
     cal: CalibrationConfig = CalibrationConfig(),
     cfg: FeatureStageConfig = FeatureStageConfig(),
     device: DeviceLike = None,
 ) -> List[Dict]:
-    """Classify every scene on ``device`` (CUDA unless named); returns
-    per-scene result dicts (path, class map path, metrics when a ROI was
-    given)."""
-    dev = resolve_device(device)
+    """Classify every scene on ``device`` (CUDA unless named), or over
+    ``mesh`` (module docstring); returns per-scene result dicts (path,
+    class map path, metrics when a ROI was given)."""
+    dev = mesh_device(mesh) if mesh is not None else resolve_device(device)
+    group = mesh.get_group("data") if mesh is not None else None
+    n_rank, rank = ((dist.get_world_size(group), dist.get_rank(group))
+                    if group is not None else (1, 0))
     os.makedirs(output_dir, exist_ok=True)
     if roi_paths and len(roi_paths) != len(scene_paths):
         raise ValueError(f"{len(roi_paths)} roi_paths for "
@@ -85,29 +100,37 @@ def run_batch_workflow(
     gf = (_gemm_for(forest, 19)
           if len(shapes) == 1 and all(a.dtype == np.uint8 for a in scenes)
           else None)
+    preds: Dict[int, np.ndarray] = {}      # this rank's scenes' maps
     pending = []
     if gf is not None:
-        for i in range(0, len(scenes), SUB_BATCH):
-            group = scenes[i:i + SUB_BATCH]
+        sub = SUB_BATCH * n_rank
+        for i in range(0, len(scenes), sub):
+            lo, hi = block_bounds(min(sub, len(scenes) - i), n_rank, rank)
+            share = scenes[i + lo:i + hi]
+            if not share:
+                continue
             luts = np.stack([build_stretch_lut(a, gains, biases)
-                             for a in group]).astype(np.uint8)
-            pending.append(classify_scenes_turbo(np.stack(group), luts, gf,
-                                                 cfg, device=dev))
+                             for a in share]).astype(np.uint8)
+            pending.append((i + lo, classify_scenes_turbo(
+                np.stack(share), luts, gf, cfg, device=dev)))
         # drain once: the sub-batches queue on the card back to back
-        preds = [m for maps in pending for m in maps.cpu().numpy()]
+        for first, maps in pending:
+            for j, m in enumerate(maps.cpu().numpy()):
+                preds[first + j] = m
     else:
-        for arr in scenes:
-            pre = preprocess_bands(arr, gains, biases, device=dev)
+        lo, hi = block_bounds(len(scenes), n_rank, rank)
+        for i in range(lo, hi):
+            pre = preprocess_bands(scenes[i], gains, biases, device=dev)
             stack = hierarchical_stack_fused(pre.to(torch.float32), cfg,
                                              device=dev)
             pred = forest_predict(forest, stack.reshape(-1, stack.shape[-1]),
                                   depth)
-            pending.append((pred, stack.shape[:2]))
-        preds = [p.cpu().numpy().reshape(shp) for p, shp in pending]
+            pending.append((i, pred, stack.shape[:2]))
+        preds = {i: p.cpu().numpy().reshape(shp) for i, p, shp in pending}
 
-    results: List[Dict] = []
+    results = []
     seen_stems: Dict[str, int] = {}
-    for i, (path, pred, meta) in enumerate(zip(scene_paths, preds, metas)):
+    for i, (path, meta) in enumerate(zip(scene_paths, metas)):
         stem = os.path.splitext(os.path.basename(path))[0]
         # disambiguate duplicate basenames (e.g. same-named scenes from
         # different directories) so outputs never overwrite each other
@@ -115,6 +138,9 @@ def run_batch_workflow(
         seen_stems[stem] = n + 1
         if n:
             stem = f"{stem}_{n}"
+        if i not in preds:              # another rank's scene
+            continue
+        pred = preds[i]
         out_tif = os.path.join(output_dir, f"{stem}_class_map.tif")
         write_tiff(out_tif, pred.astype(np.uint8)[None], meta,
                    compression="lzw", tiled=True)
@@ -129,5 +155,10 @@ def run_batch_workflow(
                       "w") as f:
                 f.write(f"scene: {path}\nOA: {m['overall_accuracy']:.4f}\n"
                         f"Kappa: {m['kappa']:.4f}\n")
-        results.append(entry)
-    return results
+        results.append((i, entry))
+    if group is not None:
+        gathered = [None] * n_rank
+        dist.all_gather_object(gathered, results, group=group)
+        results = sorted((r for part in gathered for r in part),
+                         key=lambda r: r[0])
+    return [entry for _, entry in results]
