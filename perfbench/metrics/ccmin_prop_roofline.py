@@ -1,0 +1,9 @@
+"""``ccmin_prop``'s share of its roofline in the traced span, in %: the
+counted least time of its calls (``counts/ccmin_prop.py``) over the traced
+time of its kernels."""
+
+from perfbench.harness.roofline import kernel_share
+
+
+def read(rec):
+    return kernel_share(rec, "ccmin_prop")

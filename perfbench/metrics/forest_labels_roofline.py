@@ -1,0 +1,9 @@
+"""``forest_labels``'s share of its roofline in the traced span, in %: the
+counted least time of its calls (``counts/forest_labels.py``) over the traced
+time of its kernels."""
+
+from perfbench.harness.roofline import kernel_share
+
+
+def read(rec):
+    return kernel_share(rec, "forest_labels")
