@@ -58,6 +58,7 @@ from ..ops.kernels import forest_labels, histogram256, lut_hist
 from ..ops.morphology import gradient
 from ..ops.stencil import box_filter, sobel_magnitude
 from ..ops.texture import _extract_windows, glcm_matrices, glcm_properties
+from ..utils.timing import span
 from .classify import (bare_rule_mask, paint_rule_masks, rule_based_classify,
                        rule_mask)
 from .preprocess import build_stretch_lut, build_stretch_stats
@@ -294,7 +295,9 @@ def _add_sums(results, c: int, s1: np.ndarray, s2: np.ndarray) -> None:
     """Add per-tile f32 (s1, s2) results into the f64 sums, tile by tile
     in order, after one host fetch."""
     flat = torch.stack([torch.cat([r[0], r[1].reshape(-1)])
-                        for r in results]).cpu().numpy()
+                        for r in results])
+    with span("large.fetch", bytes=flat.nbytes):
+        flat = flat.cpu().numpy()
     for row in flat.astype(np.float64):
         s1 += row[:c]
         s2 += row[c:].reshape(c, c)
@@ -488,7 +491,8 @@ class _PassBC:
         grids = torch.cat([torch.cat([r[2][:g].reshape(-1),
                                       r[3][:g].reshape(-1)])
                            for _, g, r in items])
-        smax, grids = smax.cpu().numpy(), grids.cpu().numpy()
+        with span("large.fetch", bytes=smax.nbytes + grids.nbytes):
+            smax, grids = smax.cpu().numpy(), grids.cpu().numpy()
         self.sobel_max = max(self.sobel_max, float(smax.max()))
         k = 0
         n_j = self.con.shape[1]
@@ -607,7 +611,9 @@ def _drain_labels(pending, out: np.ndarray, writer) -> None:
     """Copy ``(y0, rows, labels)`` tiles into ``out`` in order, handing
     each to ``writer.write_rows`` as it lands."""
     for y0, rows, dev in pending:
-        out[y0:y0 + rows] = dev.cpu().numpy()
+        with span("large.fetch", bytes=dev.nbytes):
+            labels = dev.cpu().numpy()
+        out[y0:y0 + rows] = labels
         if writer is not None:
             writer.write_rows(out[y0:y0 + rows])
 
@@ -679,60 +685,64 @@ def classify_large_scene_streamed(
     step = cfg.glcm.step_size
     if tile_rows % step:
         raise ValueError(f"tile_rows must be a multiple of {step}")
-    y0s = list(range(0, h, tile_rows))
-    n_chunks = len(y0s)
-    up = HostToDevice(dev, depth=2)
+    with span("large.streamed"):
+        y0s = list(range(0, h, tile_rows))
+        n_chunks = len(y0s)
+        up = HostToDevice(dev, depth=2)
 
-    def put(i):
-        return up.put(arr[:, y0s[i]:min(h, y0s[i] + tile_rows), :])
+        def put(i):
+            return up.put(arr[:, y0s[i]:min(h, y0s[i] + tile_rows), :])
 
-    raw = {i: put(i) for i in range(min(2, n_chunks))}
-    # the host statistics while the first chunks are on their way
-    lut, sp, hists = build_stretch_stats(arr, cal.gains, cal.biases)
-    lut_d = torch.from_numpy(lut.astype(np.uint8)).to(dev)
-    sp_d = torch.from_numpy(sp).to(dev)
-    acc = _PassBC(compute_global_stats(arr, cfg,
-                                       hists=hists.astype(np.int64)),
-                  cfg, h, w, dev)
-    st = []                           # the stretched chunks, on the device
+        raw = {i: put(i) for i in range(min(2, n_chunks))}
+        # the host statistics while the first chunks are on their way
+        with span("large.host_stats"):
+            lut, sp, hists = build_stretch_stats(arr, cal.gains, cal.biases)
+            lut_d = torch.from_numpy(lut.astype(np.uint8)).to(dev)
+            sp_d = torch.from_numpy(sp).to(dev)
+            acc = _PassBC(compute_global_stats(arr, cfg,
+                                               hists=hists.astype(np.int64)),
+                          cfg, h, w, dev)
+        st = []                           # the stretched chunks, on the device
 
-    def rows_of(i, lo, hi):
-        """Rows [lo, hi) of the scene from the stretched chunks i - 1, i,
-        i + 1 (lo and hi within them)."""
-        y0 = y0s[i]
-        parts = []
-        if lo < y0:
-            parts.append(st[i - 1][:, lo - y0:, :])
-        parts.append(st[i])
-        if hi > y0 + st[i].shape[1]:
-            parts.append(st[i + 1][:, :hi - y0 - st[i].shape[1], :])
-        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        def rows_of(i, lo, hi):
+            """Rows [lo, hi) of the scene from the stretched chunks i - 1, i,
+            i + 1 (lo and hi within them)."""
+            y0 = y0s[i]
+            parts = []
+            if lo < y0:
+                parts.append(st[i - 1][:, lo - y0:, :])
+            parts.append(st[i])
+            if hi > y0 + st[i].shape[1]:
+                parts.append(st[i + 1][:, :hi - y0 - st[i].shape[1], :])
+            return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
-    def dispatch_bc(i):
-        y0 = y0s[i]
-        rows = min(tile_rows, h - y0)
-        ys = max(0, y0 - 1)
-        acc.dispatch(rows_of(i, ys, min(h, y0 + rows + 1)), y0, rows,
-                     y0 - ys)
+        def dispatch_bc(i):
+            y0 = y0s[i]
+            rows = min(tile_rows, h - y0)
+            ys = max(0, y0 - 1)
+            acc.dispatch(rows_of(i, ys, min(h, y0 + rows + 1)), y0, rows,
+                         y0 - ys)
 
-    for i in range(n_chunks):
-        st.append(lut_hist(raw.pop(i), lut_d, out_u8=True, sp=sp_d,
-                           skip_hist=True))
-        if i + 2 < n_chunks:
-            raw[i + 2] = put(i + 2)   # two copies in flight
-        if i >= 1:
-            dispatch_bc(i - 1)
-    dispatch_bc(n_chunks - 1)
-    acc.drain(acc.pending)            # one fetch, f64 sums in tile order
-    classify_tile = _tile_classifier(acc.globals_dict(), gf, cfg, (h, w),
-                                     dev)
-    pending = []
-    for i, (y0, rows, ys, ye) in enumerate(_halo_tiles(h, tile_rows)):
-        pending.append((y0, rows, classify_tile(rows_of(i, ys, ye), y0,
-                                                y0 - ys, rows)))
-    out = np.zeros((h, w), np.int32)
-    _drain_labels(pending, out, writer)
-    return out
+        with span("large.pass_bc"):
+            for i in range(n_chunks):
+                st.append(lut_hist(raw.pop(i), lut_d, out_u8=True, sp=sp_d,
+                                   skip_hist=True))
+                if i + 2 < n_chunks:
+                    raw[i + 2] = put(i + 2)   # two copies in flight
+                if i >= 1:
+                    dispatch_bc(i - 1)
+            dispatch_bc(n_chunks - 1)
+            acc.drain(acc.pending)        # one fetch, f64 sums in tile order
+        with span("large.pass_d"):
+            classify_tile = _tile_classifier(acc.globals_dict(), gf, cfg,
+                                             (h, w), dev)
+            pending = []
+            for i, (y0, rows, ys, ye) in enumerate(_halo_tiles(h, tile_rows)):
+                pending.append((y0, rows, classify_tile(rows_of(i, ys, ye), y0,
+                                                        y0 - ys, rows)))
+            out = np.zeros((h, w), np.int32)
+            _drain_labels(pending, out, writer)
+        return out
 
 
 # -------------------------------------------------- KMeans

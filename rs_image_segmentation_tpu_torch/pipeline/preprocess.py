@@ -36,6 +36,7 @@ from ..io import native as _native
 from ..io.tiff import read_tiff, write_tiff
 from ..ops.kernels import apply_u8_lut, fused_calibrate_stretch
 from ..ops.resize import estimate_affine_from_gcps, warp_affine_bilinear
+from ..utils.timing import span
 
 _IDENTITY = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0)
 
@@ -202,15 +203,18 @@ def build_stretch_stats(arr_u8: np.ndarray, gains, biases):
     bincount pushed through the LUT (the LUT is a per-DN function, so this
     equals histogramming the stretched image). Each band is counted by
     ``io.native.hist_u8`` (the C++ codec library), and by ``np.bincount``
-    where that library cannot be built."""
-    lut, params = build_stretch_params(arr_u8, gains, biases)
+    where that library cannot be built. The two parts are marked
+    ``stretch.params`` and ``stretch.hist``."""
+    with span("stretch.params"):
+        lut, params = build_stretch_params(arr_u8, gains, biases)
     c = arr_u8.shape[0]
     hist = np.zeros((c, 256), np.int64)
-    for i in range(c):
-        hist_raw = _native.hist_u8(arr_u8[i])
-        if hist_raw is None:
-            hist_raw = np.bincount(arr_u8[i].reshape(-1), minlength=256)
-        np.add.at(hist[i], lut[i].astype(np.int64), hist_raw)
+    with span("stretch.hist"):
+        for i in range(c):
+            hist_raw = _native.hist_u8(arr_u8[i])
+            if hist_raw is None:
+                hist_raw = np.bincount(arr_u8[i].reshape(-1), minlength=256)
+            np.add.at(hist[i], lut[i].astype(np.int64), hist_raw)
     return lut, params, hist.astype(np.int32)
 
 

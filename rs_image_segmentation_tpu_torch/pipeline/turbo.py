@@ -46,6 +46,7 @@ from ..ops.morphology import closing, gradient, opening
 from ..ops.stencil import box_filter, sobel_magnitude
 from ..ops.texture import glcm_feature_maps
 from ..ops.threshold import threshold_binary
+from ..utils.timing import span
 from .classify import rule_based_classify
 
 __all__ = ["apply_u8_lut", "histogram256", "percentiles_from_counts",
@@ -133,7 +134,10 @@ def _stack_cm_from_parts(stretched_f32: torch.Tensor, hist: torch.Tensor,
     xc = xs - mean[..., None, None]
     flat = xc.reshape(b, c, n)
     cov = torch.stack([f @ f.T for f in flat]) / (n - 1)
-    eigvals, eigvecs = torch.linalg.eigh(cov)
+    # on a CUDA device eigh reads its error flags back, so the host waits
+    # here for the device to catch up
+    with span("turbo.fetch"):
+        eigvals, eigvecs = torch.linalg.eigh(cov)
     top = torch.argmax(eigvals, dim=-1)                      # (B,)
     comp0 = torch.gather(eigvecs, 2, top[:, None, None].expand(b, c, 1))[..., 0]
     peak = torch.argmax(torch.abs(comp0), dim=-1, keepdim=True)
@@ -193,14 +197,23 @@ def _batch_inputs(scenes_u8, stretch_luts_u8, stretch_params, stretch_hists,
                   device: DeviceLike):
     """A program's inputs on its device: scenes, LUTs, and the optional
     stretch params and host histograms (the histograms only with the
-    params, as the preamble uses them)."""
+    params, as the preamble uses them). Marked ``turbo.inputs``, with the
+    bytes copied from the host."""
     dev = resolve_device(device)
-    sp = (None if stretch_params is None
-          else as_tensor(stretch_params, dev, torch.int32))
-    hh = (None if stretch_hists is None or sp is None
-          else as_tensor(stretch_hists, dev, torch.int32))
-    return (as_tensor(scenes_u8, dev, torch.uint8),
-            as_tensor(stretch_luts_u8, dev, torch.uint8), sp, hh)
+    with span("turbo.inputs") as rec:
+        sp = (None if stretch_params is None
+              else as_tensor(stretch_params, dev, torch.int32))
+        hh = (None if stretch_hists is None or sp is None
+              else as_tensor(stretch_hists, dev, torch.int32))
+        out = (as_tensor(scenes_u8, dev, torch.uint8),
+               as_tensor(stretch_luts_u8, dev, torch.uint8), sp, hh)
+        if rec is not None:
+            given = (scenes_u8, stretch_luts_u8, stretch_params,
+                     stretch_hists)
+            rec.counts["bytes"] = sum(
+                t.nbytes for g, t in zip(given, out) if t is not None
+                and not (isinstance(g, torch.Tensor) and g.device == dev))
+    return out
 
 
 def classify_scenes_turbo(scenes_u8, stretch_luts_u8, gf: GemmForest,
@@ -213,14 +226,16 @@ def classify_scenes_turbo(scenes_u8, stretch_luts_u8, gf: GemmForest,
     kernel). ``stretch_params``: optional (B, 7, 3+2K) int32 fixed-point
     stretch params (build_stretch_params). ``stretch_hists``: optional
     (B, 7, 256) int32 host-precomputed stretched-value histograms
-    (build_stretch_stats); with both, the preamble skips its histogram."""
-    scenes, luts, sp, hh = _batch_inputs(scenes_u8, stretch_luts_u8,
-                                         stretch_params, stretch_hists,
-                                         device)
-    b, _, h, w = scenes.shape
-    stacks = _stack_cm_from_parts(*_preamble(scenes, luts, sp, hh), cfg)
-    labels = forest_labels(gf, stacks.reshape(b, stacks.shape[1], h * w))
-    return labels.reshape(b, h, w).to(torch.uint8)
+    (build_stretch_stats); with both, the preamble skips its histogram.
+    Marked ``turbo.batch``."""
+    with span("turbo.batch"):
+        scenes, luts, sp, hh = _batch_inputs(scenes_u8, stretch_luts_u8,
+                                             stretch_params, stretch_hists,
+                                             device)
+        b, _, h, w = scenes.shape
+        stacks = _stack_cm_from_parts(*_preamble(scenes, luts, sp, hh), cfg)
+        labels = forest_labels(gf, stacks.reshape(b, stacks.shape[1], h * w))
+        return labels.reshape(b, h, w).to(torch.uint8)
 
 
 # ------------------------------------------------------- KMeans programs
@@ -400,13 +415,14 @@ def rule_based_scenes_turbo_batch(scenes_u8, stretch_luts_u8,
     ``return_overflow=True`` it also returns a (B,) bool marking the scenes
     where any of their four masks hit the cap, whose output may have
     dropped a large component; callers reroute those scenes to a path
-    without the cap."""
-    scenes, luts, sp, hh = _batch_inputs(scenes_u8, stretch_luts_u8,
-                                         stretch_params, stretch_hists,
-                                         device)
-    out, overflow = _rule_labels(*_rule_front(scenes, luts, cfg, sp, hh),
-                                 rule_cfg if rule_cfg is not None
-                                 else RuleBasedConfig())
+    without the cap. Marked ``turbo.batch``."""
+    with span("turbo.batch"):
+        scenes, luts, sp, hh = _batch_inputs(scenes_u8, stretch_luts_u8,
+                                             stretch_params, stretch_hists,
+                                             device)
+        out, overflow = _rule_labels(*_rule_front(scenes, luts, cfg, sp, hh),
+                                     rule_cfg if rule_cfg is not None
+                                     else RuleBasedConfig())
     return (out, overflow) if return_overflow else out
 
 

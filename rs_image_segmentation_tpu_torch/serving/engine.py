@@ -63,6 +63,7 @@ from ..pipeline import large_scene, turbo
 from ..pipeline.features import hierarchical_stack_fused
 from ..pipeline.preprocess import build_stretch_stats
 from ..utils.log import get_logger
+from ..utils.timing import span
 
 _log = get_logger("serving")
 
@@ -210,6 +211,10 @@ class InferenceEngine:
             "errors": 0, "cancelled": 0, "rejected": 0,
             "rejected_shape": 0, "program_evictions": 0,
             "rule_overflow_reroutes": 0,
+            # seconds and counts: submit to claim, and the host stretch
+            # statistics of each dispatched batch
+            "queue_wait_s": 0.0, "queue_waits": 0,
+            "host_stats_s": 0.0, "host_stats_batches": 0,
             "batch_sizes": collections.Counter(),
             "methods": collections.Counter(),
         }
@@ -357,6 +362,10 @@ class InferenceEngine:
                 "rule_overflow_reroutes":
                     self._stats["rule_overflow_reroutes"],
                 "rejected_shape": self._stats["rejected_shape"],
+                "queue_wait_s": {"sum": self._stats["queue_wait_s"],
+                                 "count": self._stats["queue_waits"]},
+                "host_stats_s": {"sum": self._stats["host_stats_s"],
+                                 "count": self._stats["host_stats_batches"]},
                 "strict_shapes": (
                     [list(s) for s in self._ecfg.strict_shapes]
                     if self._ecfg.strict_shapes is not None else None),
@@ -442,12 +451,15 @@ class InferenceEngine:
             while True:
                 with self._lock:
                     q = self._pending.get(key)
+                    now = time.perf_counter()
                     while q and len(group) < self._ecfg.max_batch:
                         req = q.popleft()
                         # claim the future; skip ones cancelled while
                         # queued (client timeout / disconnect)
                         if req.future.set_running_or_notify_cancel():
                             group.append(req)
+                            self._stats["queue_wait_s"] += now - req.t_submit
+                            self._stats["queue_waits"] += 1
                         else:
                             self._stats["cancelled"] += 1
                     if q is not None and not q:
@@ -488,108 +500,113 @@ class InferenceEngine:
                    method: Optional[str] = None,
                    bucket: Optional[int] = None,
                    record_stats: bool = True) -> List[np.ndarray]:
-        method = method if method is not None else self._method
-        n = len(scenes)
-        # bucket padding only pays off for the batched device programs;
-        # the traversal fallback (random_forest beyond the GEMM leaf cap)
-        # classifies per scene, so padded duplicates would each cost full
-        # price there
-        if method == "random_forest" and self._gf is None:
-            b = n
-        elif method == "kmeans" and self._ecfg.kmeans_shared_fit:
-            # shared fit draws its subsample ACROSS the batch (stride
-            # scales with b), so padded duplicates would enter the fit —
-            # over-weighting the repeated scene and changing every output
-            # vs an unpadded run. Disabling padding (b = n) keeps the
-            # exactness contract.
-            b = n
-        elif method == "kmeans":
-            # per-scene fits dispatch through the SINGLE-SCENE program
-            # below (b = n: padding would be pure waste) — see there
-            b = n
-        else:
-            b = bucket if bucket is not None else self._bucket_for(n)
-        # pad up by repeating the last scene: per-scene statistics (and
-        # frozen converged lanes) make the first n outputs bit-identical
-        # to an unpadded run
-        padded = list(scenes) + [scenes[-1]] * (b - n)
-        batch = np.stack(padded)
-        # per-band fixed-point stretch routing and the host
-        # stretched-value histogram (the preamble then skips its own): all
-        # three batched programs take (stretch_params, stretch_hists)
-        stats = [build_stretch_stats(s, self._gains, self._biases)
-                 for s in padded]
-        luts = np.stack([p[0] for p in stats]).astype(np.uint8)
-        sps = np.stack([p[1] for p in stats])
-        hists = np.stack([p[2] for p in stats])
-        with self._lock:
-            if record_stats:
-                self._stats["batches"] += 1
-                self._stats["batch_sizes"][n] += 1
-                self._stats["padded_scenes"] += b - n
-        dev = self._device
-        inputs = (as_tensor(batch, dev), as_tensor(luts, dev),
-                  as_tensor(sps, dev), as_tensor(hists, dev))
-        if method == "random_forest" and self._gf is None:
-            maps = self._fallback_batch(inputs[0], inputs[1])
-        elif method == "kmeans" and self._ecfg.kmeans_warm_start:
-            # shared-fit warm start: seed this batch's Lloyd loop from the
-            # last converged centroids for this scene shape (tiny K x F
-            # host state; convergence-gated, so quality is self-healing)
-            shape_key = tuple(batch.shape[1:])
-            with self._lock:
-                prev = self._km_cents.get(shape_key)
-            run = self._program_for(method, b, batch.shape[1:],
-                                    warm=prev is not None)
-            if prev is not None:
-                maps, cents = run(*inputs, prev)
+        with span("serve.batch"):
+            method = method if method is not None else self._method
+            n = len(scenes)
+            # bucket padding only pays off for the batched device programs;
+            # the traversal fallback (random_forest beyond the GEMM leaf cap)
+            # classifies per scene, so padded duplicates would each cost full
+            # price there
+            if method == "random_forest" and self._gf is None:
+                b = n
+            elif method == "kmeans" and self._ecfg.kmeans_shared_fit:
+                # shared fit draws its subsample ACROSS the batch (stride
+                # scales with b), so padded duplicates would enter the fit —
+                # over-weighting the repeated scene and changing every output
+                # vs an unpadded run. Disabling padding (b = n) keeps the
+                # exactness contract.
+                b = n
+            elif method == "kmeans":
+                # per-scene fits dispatch through the SINGLE-SCENE program
+                # below (b = n: padding would be pure waste) — see there
+                b = n
             else:
-                maps, cents = run(*inputs)
-            if record_stats:    # warmup traffic must not seed real state
+                b = bucket if bucket is not None else self._bucket_for(n)
+            # pad up by repeating the last scene: per-scene statistics (and
+            # frozen converged lanes) make the first n outputs bit-identical
+            # to an unpadded run
+            padded = list(scenes) + [scenes[-1]] * (b - n)
+            batch = np.stack(padded)
+            # per-band fixed-point stretch routing and the host
+            # stretched-value histogram (the preamble then skips its own): all
+            # three batched programs take (stretch_params, stretch_hists)
+            t_stats = time.perf_counter()
+            stats = [build_stretch_stats(s, self._gains, self._biases)
+                     for s in padded]
+            t_stats = time.perf_counter() - t_stats
+            luts = np.stack([p[0] for p in stats]).astype(np.uint8)
+            sps = np.stack([p[1] for p in stats])
+            hists = np.stack([p[2] for p in stats])
+            with self._lock:
+                if record_stats:
+                    self._stats["batches"] += 1
+                    self._stats["batch_sizes"][n] += 1
+                    self._stats["padded_scenes"] += b - n
+                    self._stats["host_stats_s"] += t_stats
+                    self._stats["host_stats_batches"] += 1
+            dev = self._device
+            inputs = (as_tensor(batch, dev), as_tensor(luts, dev),
+                      as_tensor(sps, dev), as_tensor(hists, dev))
+            if method == "random_forest" and self._gf is None:
+                maps = self._fallback_batch(inputs[0], inputs[1])
+            elif method == "kmeans" and self._ecfg.kmeans_warm_start:
+                # shared-fit warm start: seed this batch's Lloyd loop from the
+                # last converged centroids for this scene shape (tiny K x F
+                # host state; convergence-gated, so quality is self-healing)
+                shape_key = tuple(batch.shape[1:])
                 with self._lock:
-                    self._km_cents[shape_key] = cents.cpu().numpy()
-        elif method == "kmeans" and not self._ecfg.kmeans_shared_fit:
-            # default per-scene-fit route: dispatch each scene through
-            # the SAME single-scene program the direct-request path runs,
-            # regardless of how many arrived together, so responses are
-            # bit-identical however requests are batched, and no scene
-            # waits on the slowest lane's Lloyd iterations
-            run = self._program_for(method, 1, batch.shape[1:])
-            maps = torch.cat([run(*(x[i:i + 1] for x in inputs))
-                              for i in range(n)])
-        else:
-            run = self._program_for(method, b, batch.shape[1:])
-            maps = run(*inputs)
-        if method == "rule_based":
-            maps, overflow = maps
+                    prev = self._km_cents.get(shape_key)
+                run = self._program_for(method, b, batch.shape[1:],
+                                        warm=prev is not None)
+                if prev is not None:
+                    maps, cents = run(*inputs, prev)
+                else:
+                    maps, cents = run(*inputs)
+                if record_stats:    # warmup traffic must not seed real state
+                    with self._lock:
+                        self._km_cents[shape_key] = cents.cpu().numpy()
+            elif method == "kmeans" and not self._ecfg.kmeans_shared_fit:
+                # default per-scene-fit route: dispatch each scene through
+                # the SAME single-scene program the direct-request path runs,
+                # regardless of how many arrived together, so responses are
+                # bit-identical however requests are batched, and no scene
+                # waits on the slowest lane's Lloyd iterations
+                run = self._program_for(method, 1, batch.shape[1:])
+                maps = torch.cat([run(*(x[i:i + 1] for x in inputs))
+                                  for i in range(n)])
+            else:
+                run = self._program_for(method, b, batch.shape[1:])
+                maps = run(*inputs)
+            if method == "rule_based":
+                maps, overflow = maps
+                out = maps[:n].cpu().numpy()
+                ov = overflow[:n].cpu().numpy()
+                if ov.any() and not record_stats:
+                    # warmup scenes are random noise (~H*W/4 runs — far past
+                    # the cap by construction); their outputs are discarded,
+                    # so paying the slow uncapped reroute would warm nothing
+                    pass
+                elif ov.any():
+                    # the batched min-area machinery hit its 32768-id cap on
+                    # these scenes (dense speckle / very large rasters) —
+                    # recompute them through the uncapped whole-image path.
+                    # Inputs match exactly: the stretched scene is the LUT
+                    # applied to the raw DNs and `hists` already holds the
+                    # stretched-value histograms (build_stretch_stats).
+                    nb = luts.shape[1]
+                    for i in np.nonzero(ov)[0]:
+                        pre = luts[i][np.arange(nb)[:, None, None], padded[i]]
+                        out[i] = large_scene.rule_based_large_scene(
+                            pre, cfg=self._cfg,
+                            hists=hists[i].astype(np.int64), device=dev)
+                    with self._lock:
+                        self._stats["rule_overflow_reroutes"] += int(ov.sum())
+                    _log.warning("min-area id cap hit on %d scene(s); "
+                                 "rerouted to the uncapped rule path",
+                                 int(ov.sum()))
+                return [out[i] for i in range(n)]
             out = maps[:n].cpu().numpy()
-            ov = overflow[:n].cpu().numpy()
-            if ov.any() and not record_stats:
-                # warmup scenes are random noise (~H*W/4 runs — far past
-                # the cap by construction); their outputs are discarded,
-                # so paying the slow uncapped reroute would warm nothing
-                pass
-            elif ov.any():
-                # the batched min-area machinery hit its 32768-id cap on
-                # these scenes (dense speckle / very large rasters) —
-                # recompute them through the uncapped whole-image path.
-                # Inputs match exactly: the stretched scene is the LUT
-                # applied to the raw DNs and `hists` already holds the
-                # stretched-value histograms (build_stretch_stats).
-                nb = luts.shape[1]
-                for i in np.nonzero(ov)[0]:
-                    pre = luts[i][np.arange(nb)[:, None, None], padded[i]]
-                    out[i] = large_scene.rule_based_large_scene(
-                        pre, cfg=self._cfg,
-                        hists=hists[i].astype(np.int64), device=dev)
-                with self._lock:
-                    self._stats["rule_overflow_reroutes"] += int(ov.sum())
-                _log.warning("min-area id cap hit on %d scene(s); "
-                             "rerouted to the uncapped rule path",
-                             int(ov.sum()))
             return [out[i] for i in range(n)]
-        out = maps[:n].cpu().numpy()
-        return [out[i] for i in range(n)]
 
     def _program_for(self, method: str, bucket: int, shape: tuple,
                      warm: bool = False):

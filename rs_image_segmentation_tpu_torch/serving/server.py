@@ -217,6 +217,14 @@ def _prometheus_metrics(st: dict) -> bytes:
         st.get("program_cache_size", 0))
     add("program_evictions_total", "counter",
         "LRU-evicted device programs", st.get("program_evictions", 0))
+    for key, what, unit in (
+            ("queue_wait", "from submit to dispatch", "requests"),
+            ("host_stats", "building host stretch statistics", "batches")):
+        add(f"{key}_seconds_total", "counter", f"seconds {what}",
+            f"{st[key + '_s']['sum']:.6f}")
+        add(f"{key}_seconds_count", "counter",
+            f"{unit} counted in rsseg_{key}_seconds_total",
+            st[key + "_s"]["count"])
     lines.append("# HELP rsseg_method_requests_total requests per method")
     lines.append("# TYPE rsseg_method_requests_total counter")
     for m, n in sorted(st.get("methods", {}).items()):

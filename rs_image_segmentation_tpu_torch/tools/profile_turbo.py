@@ -7,8 +7,10 @@ the ``chip_smoke.py`` inputs (8
 synthetic scenes of 7 x 600 x 600 from seed 0, a 100-tree forest for the
 supervised path) on one CUDA card, profiles one run after a warm-up, and
 prints the card, the top kernels and the top PyTorch ops by device time,
-the device busy share of the run (kernel time over wall time), then one
-JSON line.
+the device busy share of the run (the union of kernel, copy and fill
+intervals on every stream over the run's span in the exported trace, so
+two streams at once count once), the program's spans
+(``utils.timing.span``) with their self times, then one JSON line.
 
     python -m rs_image_segmentation_tpu_torch.tools.profile_turbo \
         [--path rule|kmeans]
@@ -18,11 +20,19 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
+
+from ..utils.timing import self_time, spans
+from ..utils.traceview import _merge
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+RUN_MARK = "profile_turbo.run"
 
 
 def _device_us(evt) -> float:
@@ -40,6 +50,29 @@ def _total_us(evt) -> float:
 
 
 BATCH, SIZE, SEED, TOP = 8, 600, 0, 15
+
+
+def busy_share(events: list, lo: float, hi: float) -> float:
+    """Share of ``[lo, hi]`` (trace microseconds) in which the device ran
+    anything: the union of the chrome trace ``events``' kernel, copy and
+    fill intervals on every stream, clipped to the span."""
+    ivs = []
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in DEVICE_CATS:
+            continue
+        a = float(e["ts"])
+        b = a + float(e.get("dur", 0.0))
+        if min(b, hi) > max(a, lo):
+            ivs.append((max(a, lo), min(b, hi)))
+    return sum(b - a for a, b in _merge(ivs)) / (hi - lo)
+
+
+def _run_span(events: list):
+    """``(start, end)`` of the ``RUN_MARK`` annotation, microseconds."""
+    for e in events:
+        if e.get("ph") == "X" and e.get("name") == RUN_MARK:
+            return float(e["ts"]), float(e["ts"]) + float(e["dur"])
+    raise RuntimeError(f"the trace has no {RUN_MARK} span")
 
 
 def main(argv=None) -> int:
@@ -98,12 +131,22 @@ def main(argv=None) -> int:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
+        with torch.profiler.record_function(RUN_MARK):
+            run()
+            torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    program = spans()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            trace_events = json.load(f)["traceEvents"]
+    share = busy_share(trace_events, *_run_span(trace_events))
     events = prof.key_averages()
+    # the device side of each annotation is listed too; it is no kernel
     kern = [e for e in events
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not (e.key.startswith("rsseg.") or e.key == RUN_MARK)]
     busy_us = sum(_device_us(e) for e in kern)
     aten_ops = [e for e in events
                 if e.device_type == torch.autograd.DeviceType.CPU
@@ -113,9 +156,15 @@ def main(argv=None) -> int:
 
     print(f"card: {smi}; path: {path}")
     print(f"one run: wall {wall_us / 1e3:.3f} ms, kernels {busy_us / 1e3:.3f} "
-          f"ms, busy share {busy_us / wall_us:.3f}, "
+          f"ms, busy share {share:.3f}, "
           f"{len(kern)} distinct kernels, "
           f"{sum(e.count for e in kern)} launches")
+    print("program spans (ms, self ms, counts):")
+    depth = {}
+    for r in program:
+        depth[r.id] = depth.get(r.parent, -1) + 1
+        print(f"  {'  ' * depth[r.id]}{r.name:<20} {r.duration * 1e3:9.3f} "
+              f"{self_time(r, program) * 1e3:9.3f}  {r.counts or ''}")
     print("top kernels by device time (ms, launches):")
     for e in sorted(kern, key=_device_us, reverse=True)[:TOP]:
         print(f"  {_device_us(e) / 1e3:9.3f} {e.count:5d}  {e.key[:100]}")
@@ -124,7 +173,9 @@ def main(argv=None) -> int:
         print(f"  {_total_us(e) / 1e3:9.3f} {e.count:5d}  {e.key}")
     print(json.dumps({
         "card": smi, "path": path, "wall_ms": wall_us / 1e3, "kernel_ms": busy_us / 1e3,
-        "busy_share": busy_us / wall_us,
+        "busy_share": share,
+        "spans": [[r.name, r.duration * 1e3, self_time(r, program) * 1e3]
+                  for r in program],
         "launches": sum(e.count for e in kern),
         "top_kernels": [[e.key[:100], _device_us(e) / 1e3, e.count]
                         for e in sorted(kern, key=_device_us,
