@@ -116,11 +116,15 @@ Phases, in order; any failed check raises and the script exits non-zero:
      the host LUT and its histogram to ``band_histograms_u8``, its
      streaming mode (cap 0) equal to the resident one; ``lut_hist`` (uint8
      out; the 504-row chunk with and without ``sp``/``skip_hist``, the
-     456-row last chunk, the whole scene) and ``forest_labels`` (the first
-     and last tiles' stacks) bit-equal to their plain versions;
+     456-row last chunk, the whole scene), ``raw_counts`` (both chunks, at
+     16-byte aligned bases and 1 and 4 bytes past, and the scene's 12
+     chunks into one accumulator, whose tables equal
+     ``build_stretch_stats``'s) and ``forest_labels`` (the first and last
+     tiles' stacks) bit-equal to their plain versions;
      ``classify_large_scene_streamed`` bit-equal to ``preprocess_large``
-     -> ``classify_large_scene`` on both scenes, launching ``lut_hist``
-     once a chunk and ``forest_labels`` once a tile and no plain version;
+     -> ``classify_large_scene`` on both scenes, launching ``raw_counts``
+     and ``lut_hist`` once a chunk and ``forest_labels`` once a tile and
+     no plain version;
      the tiled map against ``classify_scenes_turbo`` (>= 0.995, at 600^2
      with tile_rows 63 and 504, and at 6000^2 when it fits); card against
      CPU on a 1260^2 tiling (supervised >= 99.9 %, KMeans assignment to
@@ -354,7 +358,7 @@ def all_kernels():
     return (kernels.lut_hist, kernels.forest_labels, kernels.ccmin_prop,
             kernels.hist_dense, kernels.keep_lut, kernels.cc_labels,
             kernels.fused_calibrate_stretch, kernels.fused_spectral_indices,
-            kernels.glcm_grid)
+            kernels.glcm_grid, kernels.raw_counts)
 
 
 STAGE_KERNELS = ("fused_calibrate_stretch", "fused_spectral_indices",
@@ -1715,11 +1719,11 @@ def peak_gb(fn):
     return out, (torch.cuda.max_memory_allocated() - base) / 1e9
 
 
-# the plain versions of the nine kernels (``ops.kernels``)
+# the plain versions of the ten kernels (``ops.kernels``)
 PLAIN_FUNCTIONS = ("lut_hist_plain", "gemm_labels_cm", "ccmin_prop_plain",
                    "hist_dense_plain", "keep_lut_plain", "cc_labels_plain",
                    "glcm_grid_plain", "fused_spectral_indices_plain",
-                   "fused_calibrate_stretch_plain")
+                   "fused_calibrate_stretch_plain", "raw_counts_plain")
 
 
 def plain_calls(run):
@@ -1769,7 +1773,7 @@ def large_scene_phases(dev, cfg, scenes, luts, gf, gf_cpu, rows) -> dict:
     from rs_image_segmentation_tpu_torch.pipeline.evaluate import (
         ClassificationEvaluator)
     from rs_image_segmentation_tpu_torch.pipeline.preprocess import (
-        build_stretch_stats)
+        build_stretch_stats, stretch_stats_from_counts)
     from rs_image_segmentation_tpu_torch.utils.timing import cuda_time_ms
 
     torch.cuda.empty_cache()
@@ -1782,7 +1786,7 @@ def large_scene_phases(dev, cfg, scenes, luts, gf, gf_cpu, rows) -> dict:
     t0 = time.perf_counter()
     big = reflected_tiling(scenes[0], LARGE)
     big2 = reflected_tiling(scenes[1], LARGE)
-    lut_big, sp_big, _ = build_stretch_stats(big, gains, biases)
+    lut_big, sp_big, hist_big = build_stretch_stats(big, gains, biases)
     lut_big = lut_big.astype(np.uint8)
     host_pre = stretch(big, lut_big)
     host_hists = ls.band_histograms_u8(host_pre)
@@ -1846,6 +1850,43 @@ def large_scene_phases(dev, cfg, scenes, luts, gf, gf_cpu, rows) -> dict:
               f"{unit}")
         print(f"check lut_hist uint8 out [{label}] at {tuple(x.shape)}: "
               f"bit-equal, unit {unit}")
+    # raw_counts at the route's chunks, from 16-byte aligned and offset
+    # bases, and the scene's chunks counted into one accumulator
+    zeros = torch.zeros((BANDS, 256), dtype=torch.int32, device=dev)
+    for label, x in ((f"chunk {tr} rows", chunk),
+                     (f"last chunk {LARGE - last0} rows", last)):
+        for off, want_unit in ((0, 16), (1, 1), (4, 4)):
+            xv = x
+            if off:
+                buf = torch.empty(x.numel() + 16, dtype=torch.uint8,
+                                  device=dev)
+                xv = buf[off:off + x.numel()].view(x.shape)
+                xv.copy_(x)
+            got = kernels.raw_counts(xv, zeros.clone())
+            ref = kernels.raw_counts_plain(xv, zeros.clone())
+            torch.cuda.synchronize()
+            unit = kernels.lut_hist_unit(xv)
+            check(unit == want_unit and torch.equal(got, ref),
+                  f"raw_counts [{label}, base + {off}] bit-equal, unit "
+                  f"{unit}")
+            print(f"check raw_counts [{label}, base + {off}] at "
+                  f"{tuple(xv.shape)}: bit-equal, unit {unit}")
+    chunks = [up.put(big[:, y:y + tr]) for y in range(0, LARGE, tr)]
+    counts_d = zeros.clone()
+    for x in chunks:
+        kernels.raw_counts(x, counts_d)
+    ref = kernels.raw_counts_plain(big_d, zeros.clone())
+    torch.cuda.synchronize()
+    check(torch.equal(counts_d, ref), f"raw_counts over the {len(chunks)} "
+          f"chunks into one accumulator equals the scene's counts")
+    card_tables = stretch_stats_from_counts(counts_d.cpu().numpy(), gains,
+                                            biases)
+    check(all(np.array_equal(g, r) for g, r in zip(
+        card_tables, (lut_big, sp_big, hist_big))), "the tables derived "
+          "from the card's counts equal build_stretch_stats on the scene")
+    print(f"check raw_counts over the scene's {len(chunks)} chunks: equal "
+          f"to the scene's counts; tables from them equal "
+          f"build_stretch_stats", flush=True)
     src = ls._tile_src(pre_big, dev)
     g_big = ls._global_passes(pre_big, cfg, tr, src=src, hists=hists_big,
                               device=dev)
@@ -1870,14 +1911,30 @@ def large_scene_phases(dev, cfg, scenes, luts, gf, gf_cpu, rows) -> dict:
     gather_ms = cold_ms(lambda: torch.gather(lut_d, 1, idx64), flush)
     chunk_bytes = chunk.numel() * 2 + lut_d.numel()
     tile_ms = cuda_time_ms(lambda: kernels.forest_labels(gf, tile_x), 5, 1)
+    # the timed calls add into the accumulator (integer adds, wrapping
+    # harmlessly); a call reads its chunk and reads and writes the counts
+    count_bytes = chunk.numel() + 2 * zeros.numel() * 4
+    count_nums = kernel_numbers(lambda: kernels.raw_counts(chunk, counts_d),
+                                flush)
+    count_scene = kernel_numbers(lambda: [kernels.raw_counts(x, counts_d)
+                                          for x in chunks], flush, 5, 5, 5)
+    count_plain_ms = cold_ms(lambda: kernels.raw_counts_plain(
+        chunk, counts_d), flush, 5)
+    scene_count_bytes = big.size + len(chunks) * 2 * zeros.numel() * 4
     print(f"lut_hist uint8 out at the chunk shape {tuple(chunk.shape)}, "
           f"device ms (back to back / L2 flushed / alone): "
           f"{chunk_nums['ms']:.4f} / {chunk_nums['cold_ms']:.4f} / "
           f"{chunk_nums['alone_ms']}; torch.gather (int64 indices widened "
           f"beforehand) {gather_ms:.4f} flushed; bound "
           f"{bound(chunk_bytes, 0)[0]:.4f}; forest_labels on a tile "
-          f"{tile_ms:.4f} ms", flush=True)
-    del big_d, last
+          f"{tile_ms:.4f} ms; raw_counts on the chunk "
+          f"{count_nums['ms']:.4f} / {count_nums['cold_ms']:.4f} / "
+          f"{count_nums['alone_ms']} (plain {count_plain_ms:.4f} flushed, "
+          f"bound {bound(count_bytes, 0)[0]:.4f}), on the scene's "
+          f"{len(chunks)} chunks {count_scene['ms']:.4f} / "
+          f"{count_scene['cold_ms']:.4f} / {count_scene['alone_ms']} (bound "
+          f"{bound(scene_count_bytes, 0)[0]:.4f})", flush=True)
+    del big_d, last, chunks
 
     # ---- 18c. the supervised routes
     def streamed(raw):
@@ -1893,11 +1950,13 @@ def large_scene_phases(dev, cfg, scenes, luts, gf, gf_cpu, rows) -> dict:
         lambda: counted(lambda: plain_calls(lambda: streamed(big))))
     first_s = time.perf_counter() - t0
     check(launches_st["lut_hist"] == n_tiles
+          and launches_st["raw_counts"] == n_tiles
           and launches_st["forest_labels"] == n_tiles
           and all(n == 0 for k, n in launches_st.items()
-                  if k not in ("lut_hist", "forest_labels")),
-          f"the streamed route launches lut_hist once a chunk and "
-          f"forest_labels once a tile, nothing else: {launches_st}")
+                  if k not in ("lut_hist", "raw_counts", "forest_labels")),
+          f"the streamed route launches raw_counts and lut_hist once a "
+          f"chunk and forest_labels once a tile, nothing else: "
+          f"{launches_st}")
     check(not any(plain.values()), f"no plain version on the streamed "
           f"route: {plain}")
     map_res, res_peak = peak_gb(lambda: resident(pre_big, hists_big))
@@ -1916,8 +1975,16 @@ def large_scene_phases(dev, cfg, scenes, luts, gf, gf_cpu, rows) -> dict:
           f"both scenes; launches {launches_st}; plain calls {plain}; class "
           f"counts {counts.tolist()}", flush=True)
     warm_s, warm_runs = wall_s(lambda: streamed(big2))
-    # the route's host statistics alone (raw histograms, LUT, params)
-    host_s, _ = wall_s(lambda: build_stretch_stats(big2, gains, biases), 3)
+
+    def route_stats():
+        """The route's statistics step: each raw chunk staged and counted
+        on the card, the counts fetched, the tables derived."""
+        acc = torch.zeros((BANDS, 256), dtype=torch.int32, device=dev)
+        for y in range(0, LARGE, tr):
+            kernels.raw_counts(up.put(big2[:, y:y + tr]), acc)
+        return stretch_stats_from_counts(acc.cpu().numpy(), gains, biases)
+
+    stats_s, _ = wall_s(route_stats, 3)
     res_s, res_runs = wall_s(lambda: resident(pre_big, hists_big))
     classify_tile = ls._tile_classifier(g_big, gf, cfg, (LARGE, LARGE), dev)
     passes = {
@@ -1932,7 +1999,7 @@ def large_scene_phases(dev, cfg, scenes, luts, gf, gf_cpu, rows) -> dict:
     out["supervised"] = {
         "large_scene_first_e2e_s": first_s, "large_scene_warm_e2e_s": warm_s,
         "large_scene_mp_per_s": mp / warm_s,
-        "warm_runs_s": warm_runs, "host_stretch_stats_s": host_s,
+        "warm_runs_s": warm_runs, "route_stretch_stats_s": stats_s,
         "resident_e2e_s": res_s,
         "resident_runs_s": res_runs, "resident_passes_ms": passes,
         "preprocess_large_s": pre_s, "peak_gb": {
@@ -1942,8 +2009,9 @@ def large_scene_phases(dev, cfg, scenes, luts, gf, gf_cpu, rows) -> dict:
     print(f"supervised at {LARGE}^2, streamed (host numpy in and out): "
           f"first {first_s:.4f} s, warm median {warm_s:.4f} s "
           f"({mp / warm_s:.3f} MP/s; runs "
-          f"{[round(w, 4) for w in warm_runs]}), of which the host's "
-          f"build_stretch_stats {host_s:.4f} s; resident classify median "
+          f"{[round(w, 4) for w in warm_runs]}), of which the statistics "
+          f"(chunks staged and counted on the card, counts fetched, tables "
+          f"derived) {stats_s:.4f} s; resident classify median "
           f"{res_s:.4f} s (runs {[round(w, 4) for w in res_runs]}), by "
           f"events " + "; ".join(f"{k} {v:.2f} ms" for k, v in passes.items())
           + f"; peak GB streamed {st_peak:.3f}, resident {res_peak:.3f}",
@@ -2112,6 +2180,22 @@ def large_scene_phases(dev, cfg, scenes, luts, gf, gf_cpu, rows) -> dict:
             "forest_labels"]}
     by_name["cc_labels"]["launches_rule_resumed"] = resumed_launches[
         "rule"]["cc_labels"]
+    bms, by = bound(count_bytes, 0)
+    rows.append({
+        "name": "raw_counts", "route": "cuda",
+        "source": f"{CSRC}/lut_hist.cu", "replaces": None,
+        "launches": launches_st["raw_counts"], "max_abs_err": 0,
+        "max_diff": 0, "ms": count_nums["ms"],
+        "kernel_ms": count_nums["ms"], "plain_ms": count_plain_ms,
+        "bound_ms": bms, "bound_us": bms * 1e3, "bound_by": by,
+        "library_ms": None, "library_note": "no library call on the card "
+        "counts the bins (torch.bincount, histc and scatter_add_ are kept "
+        "off the route); plain_ms is the plain version's scatter_add_",
+        "bytes": count_bytes, "shape": list(chunk.shape),
+        **timing_keys(count_nums),
+        "scene": {"chunks": n_tiles, "bytes": scene_count_bytes,
+                  "bound_ms": bound(scene_count_bytes, 0)[0],
+                  **timing_keys(count_scene)}})
     return out
 
 

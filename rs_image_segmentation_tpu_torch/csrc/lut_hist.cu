@@ -1,5 +1,7 @@
 // lut_hist: per-band 256-entry uint8 table applied to a uint8 scene, with
-// an optional int32 histogram of the stretched values.
+// an optional int32 histogram of the stretched values. The file also holds
+// raw_counts (raw_counts_kernel, raw_counts_launch; its note is at the
+// kernel), the 256-bin counts of the raw DNs by the same ranges body.
 //
 // Replaces: rs_image_segmentation_tpu/ops/pallas_kernels.py
 //   lut_hist_pallas (kernel bodies _lut_hist_kernel, _lut_hist_mixed_kernel).
@@ -90,27 +92,55 @@ template <> struct Unit<16> { using type = uint4; };
 template <> struct Unit<4> { using type = uint32_t; };
 template <> struct Unit<1> { using type = uint8_t; };
 
+// A DN's level: its table entry, or (kRaw, the raw counts) the DN.
+template <bool kRaw, typename E>
+__device__ __forceinline__ E level(const E* tab, uint32_t dn) {
+  if constexpr (kRaw) {
+    return static_cast<E>(dn);
+  } else {
+    return tab[dn];
+  }
+}
+
 // The levels of a word's 4 DNs as one word of bytes (uint8 out).
-template <bool kHist>
+template <bool kHist, bool kRaw>
 __device__ __forceinline__ uint32_t word_u8(const uint32_t* tab, int* bins,
                                             uint32_t v) {
-  const uint32_t t0 = tab[v & 0xff], t1 = tab[(v >> 8) & 0xff];
-  const uint32_t t2 = tab[(v >> 16) & 0xff], t3 = tab[v >> 24];
+  const uint32_t t0 = level<kRaw>(tab, v & 0xff);
+  const uint32_t t1 = level<kRaw>(tab, (v >> 8) & 0xff);
+  const uint32_t t2 = level<kRaw>(tab, (v >> 16) & 0xff);
+  const uint32_t t3 = level<kRaw>(tab, v >> 24);
   if constexpr (kHist) count_word(bins, t0, t1, t2, t3);
   return t0 | (t1 << 8) | (t2 << 16) | (t3 << 24);
 }
 
-// Unit i (kW pixels from pixel kW * i) through the table `tab`.
-template <int kW, bool kOutU8, bool kHist, typename E>
+// Level t of pixel j to the output; the raw counts store nothing.
+template <bool kOutU8, bool kRaw, typename E>
+__device__ __forceinline__ void store(void* out, long long j, E t) {
+  if constexpr (kRaw) {
+    return;
+  } else if constexpr (kOutU8) {
+    static_cast<uint8_t*>(out)[j] = static_cast<uint8_t>(t);
+  } else {
+    static_cast<float*>(out)[j] = static_cast<float>(t);
+  }
+}
+
+// Unit i (kW pixels from pixel kW * i) through the table `tab`; with kRaw
+// (uint8 instances only) the raw DNs are counted and nothing is stored.
+template <int kW, bool kOutU8, bool kHist, bool kRaw, typename E>
 __device__ __forceinline__ void put(const E* tab, int* bins,
                                     typename Unit<kW>::type v, void* out,
                                     long long i) {
   if constexpr (kW == 16) {         // uint8 out only
-    static_cast<uint4*>(out)[i] = make_uint4(
-        word_u8<kHist>(tab, bins, v.x), word_u8<kHist>(tab, bins, v.y),
-        word_u8<kHist>(tab, bins, v.z), word_u8<kHist>(tab, bins, v.w));
+    const uint4 w = make_uint4(word_u8<kHist, kRaw>(tab, bins, v.x),
+                               word_u8<kHist, kRaw>(tab, bins, v.y),
+                               word_u8<kHist, kRaw>(tab, bins, v.z),
+                               word_u8<kHist, kRaw>(tab, bins, v.w));
+    if constexpr (!kRaw) static_cast<uint4*>(out)[i] = w;
   } else if constexpr (kW == 4 && kOutU8) {
-    static_cast<uint32_t*>(out)[i] = word_u8<kHist>(tab, bins, v);
+    const uint32_t w = word_u8<kHist, kRaw>(tab, bins, v);
+    if constexpr (!kRaw) static_cast<uint32_t*>(out)[i] = w;
   } else if constexpr (kW == 4) {
     const E t0 = tab[v & 0xff], t1 = tab[(v >> 8) & 0xff];
     const E t2 = tab[(v >> 16) & 0xff], t3 = tab[v >> 24];
@@ -119,22 +149,20 @@ __device__ __forceinline__ void put(const E* tab, int* bins,
         make_float4(static_cast<float>(t0), static_cast<float>(t1),
                     static_cast<float>(t2), static_cast<float>(t3));
   } else {
-    const E t = tab[v];
+    const E t = level<kRaw>(tab, v);
     if constexpr (kHist) atomicAdd(bins + t, 1);
-    if constexpr (kOutU8) {
-      static_cast<uint8_t*>(out)[i] = static_cast<uint8_t>(t);
-    } else {
-      static_cast<float*>(out)[i] = static_cast<float>(t);
-    }
+    store<kOutU8, kRaw>(out, i, t);
   }
 }
 
-template <int kW, bool kOutU8, bool kHist>
-__global__ void __launch_bounds__(kThreads)
-lut_hist_kernel(const uint8_t* __restrict__ scene,
-                const uint8_t* __restrict__ lut, void* __restrict__ out,
-                int32_t* __restrict__ hist, long long planes, long long n,
-                long long units, long long span) {
+// The ranges instance's body: lut_hist_kernel, and raw_counts_kernel with
+// kRaw (no table staged, nothing stored, the raw DNs counted into hist).
+template <int kW, bool kOutU8, bool kHist, bool kRaw>
+__device__ __forceinline__ void
+ranges_body(const uint8_t* __restrict__ scene,
+            const uint8_t* __restrict__ lut, void* __restrict__ out,
+            int32_t* __restrict__ hist, long long planes, long long n,
+            long long units, long long span) {
   using E = Entry<kOutU8, kHist>;
   using U = typename Unit<kW>::type;
   extern __shared__ uint32_t s_tab_words[];      // tables of planes p0..p1
@@ -147,8 +175,11 @@ lut_hist_kernel(const uint8_t* __restrict__ scene,
   const long long end_px = hi * kW < total ? hi * kW : total;
   const long long p0 = lo * kW / n;
   const long long p1 = (end_px - 1) / n;
-  for (long long i = threadIdx.x; i < (p1 - p0 + 1) * 256; i += kThreads) {
-    s_tab[i] = static_cast<E>(lut[p0 * 256 + i]);
+  if constexpr (!kRaw) {
+    for (long long i = threadIdx.x; i < (p1 - p0 + 1) * 256;
+         i += kThreads) {
+      s_tab[i] = static_cast<E>(lut[p0 * 256 + i]);
+    }
   }
   if constexpr (kHist) {
     for (int i = threadIdx.x; i < kWarps * 256; i += kThreads) {
@@ -177,7 +208,7 @@ lut_hist_kernel(const uint8_t* __restrict__ scene,
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const long long i = base + u * kThreads;
-        if (i < we) put<kW, kOutU8, kHist>(tab, bins, v[u], out, i);
+        if (i < we) put<kW, kOutU8, kHist, kRaw>(tab, bins, v[u], out, i);
       }
     }
     if constexpr (kHist) {         // plane p's counts: one atomic a bin
@@ -203,18 +234,24 @@ lut_hist_kernel(const uint8_t* __restrict__ scene,
       const long long stop = w * kW + kW < total ? w * kW + kW : total;
       for (long long j = w * kW; j < stop; ++j) {
         const long long q = j < b ? p - 1 : p;
-        const E t = s_tab[(q - p0) * 256 + scene[j]];
+        const E t = level<kRaw>(s_tab + (q - p0) * 256, scene[j]);
         if constexpr (kHist) {
           atomicAdd(&hist[q * 256 + static_cast<int>(t)], 1);
         }
-        if constexpr (kOutU8) {
-          static_cast<uint8_t*>(out)[j] = static_cast<uint8_t>(t);
-        } else {
-          static_cast<float*>(out)[j] = static_cast<float>(t);
-        }
+        store<kOutU8, kRaw>(out, j, t);
       }
     }
   }
+}
+
+template <int kW, bool kOutU8, bool kHist>
+__global__ void __launch_bounds__(kThreads)
+lut_hist_kernel(const uint8_t* __restrict__ scene,
+                const uint8_t* __restrict__ lut, void* __restrict__ out,
+                int32_t* __restrict__ hist, long long planes, long long n,
+                long long units, long long span) {
+  ranges_body<kW, kOutU8, kHist, false>(scene, lut, out, hist, planes, n,
+                                        units, span);
 }
 
 // The histogram's cluster instance: one cluster of kCluster blocks per
@@ -257,7 +294,7 @@ lut_hist_cluster_kernel(const uint8_t* __restrict__ scene,
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const long long i = base + u * kThreads;
-      if (i < hi) put<kW, kOutU8, true>(s_tab, bins, v[u], out, i);
+      if (i < hi) put<kW, kOutU8, true, false>(s_tab, bins, v[u], out, i);
     }
   }
   __syncthreads();
@@ -337,6 +374,39 @@ cudaError_t launch_unit(int unit, long long grid, size_t smem,
                                  units, span);
 }
 
+// ---------------------------------------------------------------------
+// raw_counts: the 256-bin counts of each plane of a uint8 chunk's raw DNs,
+// added into a caller-owned (planes, 256) int32 accumulator. It writes no
+// output plane.
+//
+// Replaces: no TPU kernel. The JAX package counts the raw DNs on the host
+// (pipeline/preprocess.py::build_stretch_stats). It was added because those
+// host statistics were the streamed 36 MP scene's largest phase
+// (pipeline/large_scene.py::classify_large_scene_streamed), which copies
+// every raw chunk to the card anyway; every stretch table follows from the
+// counts (pipeline/preprocess.py::stretch_stats_from_counts).
+//
+// What bounds it on an H100: bytes. It reads each byte once and adds 1 KB a
+// plane: 21.2 MB a (7, 504, 6000) chunk, 6.3 us at 3.35 TB/s; 254 MB, 75.8
+// us, a 7 x 6000 x 6000 scene.
+//
+// What the design does about it: it is lut_hist's ranges instance
+// (ranges_body) with no table and no output: the blocks of
+// ops/kernels.py::lut_hist_plan, kUnroll 16-byte loads in flight a thread,
+// warp-private shared bins with a word's equal bytes added once
+// (count_word), one global atomic a nonzero bin at the end of each plane.
+// Integer sums are exact in any order, so calls over a scene's chunks add
+// into one accumulator. A kernel of its own name, so that a trace tells
+// its time from lut_hist's.
+template <int kW>
+__global__ void __launch_bounds__(kThreads)
+raw_counts_kernel(const uint8_t* __restrict__ scene,
+                  int32_t* __restrict__ counts, long long planes,
+                  long long n, long long units, long long span) {
+  ranges_body<kW, true, true, true>(scene, nullptr, nullptr, counts, planes,
+                                    n, units, span);
+}
+
 }  // namespace
 
 // scene: (planes, n) uint8; lut: (planes, 256) uint8; out: (planes, n) f32
@@ -403,4 +473,37 @@ extern "C" int lut_hist_launch(const void* scene, const void* lut, void* out,
                                         planes, n, units, span);
   }
   return static_cast<int>(err);
+}
+
+// scene: (planes, n) uint8; counts: (planes, 256) int32, added into.
+// unit: the pixels a thread reads at a time (ops/kernels.py::lut_hist_unit
+// with no output): 16 (scene 16-byte aligned), 4 (4-byte aligned) or 1,
+// with n >= unit; span as lut_hist_launch's ranges instance. Returns the
+// cudaError_t of the launch.
+extern "C" int raw_counts_launch(const void* scene, void* counts,
+                                 long long planes, long long n, int unit,
+                                 long long span, void* stream) {
+  const uintptr_t sc = reinterpret_cast<uintptr_t>(scene);
+  const bool unit_ok = unit == 1 || (unit == 4 && sc % 4 == 0)
+      || (unit == 16 && sc % 16 == 0);
+  if (!scene || !counts || planes <= 0 || n <= 0 || span <= 0 || !unit_ok
+      || n < unit || span * unit > (kMaxTables - 1) * n) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long units = (planes * n + unit - 1) / unit;
+  const long long grid = (units + span - 1) / span;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto scp = static_cast<const uint8_t*>(scene);
+  auto h = static_cast<int32_t*>(counts);
+  if (unit == 16) {
+    raw_counts_kernel<16><<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
+        scp, h, planes, n, units, span);
+  } else if (unit == 4) {
+    raw_counts_kernel<4><<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
+        scp, h, planes, n, units, span);
+  } else {
+    raw_counts_kernel<1><<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
+        scp, h, planes, n, units, span);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

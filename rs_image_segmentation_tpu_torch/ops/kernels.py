@@ -4,6 +4,9 @@ version.
 * ``lut_hist`` (``csrc/lut_hist.cu``) replaces ``lut_hist_pallas``: a
   per-band uint8 table over a uint8 scene, with an optional int32
   histogram of the stretched values.
+* ``raw_counts`` (``csrc/lut_hist.cu``) replaces no TPU kernel: the
+  per-band 256-bin counts of a raw uint8 chunk, added into an accumulator
+  (the streamed large scene's stretch statistics).
 * ``forest_labels`` (``csrc/forest_labels.cu``) replaces
   ``forest_labels_pallas``: GemmForest labels over channel-major features.
 * ``ccmin_prop`` (``csrc/ccmin_prop.cu``) replaces ``ccmin_prop_pallas``:
@@ -138,16 +141,19 @@ def lut_hist_plan(planes: int, n: int, unit: int, blocks: int
     return -(-units // span), span
 
 
-def lut_hist_unit(scene_u8: torch.Tensor, out: torch.Tensor) -> int:
+def lut_hist_unit(scene_u8: torch.Tensor,
+                  out: Optional[torch.Tensor] = None) -> int:
     """Pixels a thread of the kernel moves at a time: 16 for uint8 out
     (one 16-byte load, one 16-byte store) when both bases are 16-byte
     aligned; else 4 (a 32-bit word of DNs in, one float4 or one word of
     bytes out) when the scene's base is 4-byte aligned and the output's
     takes the store; else 1 (the scalar instance). Planes shorter than the
-    unit take a smaller one."""
+    unit take a smaller one. With no ``out`` (:func:`raw_counts`, which
+    stores nothing) the scene's base alone decides, as for uint8 out."""
     n = scene_u8.shape[-1] * scene_u8.shape[-2]
-    sc, ot = scene_u8.data_ptr(), out.data_ptr()
-    u8 = out.dtype == torch.uint8
+    sc = scene_u8.data_ptr()
+    ot = sc if out is None else out.data_ptr()
+    u8 = out is None or out.dtype == torch.uint8
     if u8 and n >= 16 and sc % 16 == 0 and ot % 16 == 0:
         return 16
     if n >= 4 and sc % 4 == 0 and ot % (4 if u8 else 16) == 0:
@@ -226,6 +232,49 @@ def lut_hist(scene_u8: torch.Tensor, lut_u8: torch.Tensor,
 
 
 lut_hist.launches = 0
+
+
+def raw_counts_plain(chunk_u8: torch.Tensor, counts: torch.Tensor
+                     ) -> torch.Tensor:
+    """Plain version of :func:`raw_counts`: :func:`histogram256` of the
+    chunk, added into ``counts``."""
+    counts += histogram256(chunk_u8)
+    return counts
+
+
+def raw_counts(chunk_u8: torch.Tensor, counts: torch.Tensor
+               ) -> torch.Tensor:
+    """Add the 256-bin counts of each plane of a ``(C, H, W)`` uint8 chunk
+    into the caller's ``(C, 256)`` int32 accumulator ``counts``, in place,
+    and return it. Calls over a scene's row chunks into one zeroed
+    accumulator count the scene; the counts are exact while every bin
+    stays below 2**31. The kernel (``csrc/lut_hist.cu``,
+    ``raw_counts_kernel``) is lut_hist's ranges instance with no table and
+    no output plane, over the blocks of :func:`lut_hist_plan`."""
+    _require(chunk_u8.dtype == torch.uint8 and chunk_u8.dim() == 3
+             and chunk_u8.numel() > 0,
+             "chunk_u8 must be a non-empty (C, H, W) uint8 tensor")
+    _require(counts.dtype == torch.int32
+             and tuple(counts.shape) == (chunk_u8.shape[0], 256),
+             "counts must be int32 of shape (C, 256)")
+    if chunk_u8.device.type == "cpu" and counts.device.type == "cpu":
+        return raw_counts_plain(chunk_u8, counts)
+    _require_cuda(chunk_u8, counts)
+    c, h, w = chunk_u8.shape
+    dev = chunk_u8.device
+    unit = lut_hist_unit(chunk_u8)
+    _, span = lut_hist_plan(c, h * w, unit,
+                            LUT_BLOCKS_PER_SM * _sm_count(dev.index))
+    _call("lut_hist", "raw_counts_launch",
+          [_P, _P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+           ctypes.c_longlong, _P],
+          chunk_u8.data_ptr(), counts.data_ptr(), c, h * w, unit, span,
+          _stream(dev))
+    raw_counts.launches += 1
+    return counts
+
+
+raw_counts.launches = 0
 
 
 # ----------------------------------------------------------- forest_labels

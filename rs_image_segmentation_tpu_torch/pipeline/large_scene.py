@@ -25,8 +25,10 @@ function of per-band 256-bin histograms:
 ``preprocess_large`` stretches a raw scene of any size with the exact LUT
 (CUDA kernel ``ops.kernels.lut_hist``, uint8 out, with the stretched
 histogram). ``classify_large_scene_streamed`` takes the raw scene from the
-host: its row chunks are copied from pinned memory on a side stream two
-ahead of the compute (``io.stream.HostToDevice``). The rule route
+host: its row chunks are copied from pinned memory on a side stream
+(``io.stream.HostToDevice``) and counted as they land (CUDA kernel
+``ops.kernels.raw_counts``); the stretch tables come from those counts. The
+rule route
 (``rule_based_large_scene``) runs over the whole scene (CUDA kernel
 ``ops.kernels.cc_labels``). The ``*_resumable`` drivers checkpoint per tile
 or per mask and resume bit for bit.
@@ -54,14 +56,14 @@ from ..io.stream import HostToDevice
 from ..models.forest import GemmForest
 from ..models.kmeans import kmeans_fit_predict, lloyd_step
 from ..ops.indices import spectral_indices
-from ..ops.kernels import forest_labels, histogram256, lut_hist
+from ..ops.kernels import forest_labels, histogram256, lut_hist, raw_counts
 from ..ops.morphology import gradient
 from ..ops.stencil import box_filter, sobel_magnitude
 from ..ops.texture import _extract_windows, glcm_matrices, glcm_properties
 from ..utils.timing import span
 from .classify import (bare_rule_mask, paint_rule_masks, rule_based_classify,
                        rule_mask)
-from .preprocess import build_stretch_lut, build_stretch_stats
+from .preprocess import build_stretch_lut, stretch_stats_from_counts
 from .turbo import rule_indices
 
 
@@ -663,17 +665,19 @@ def classify_large_scene_streamed(
         device: DeviceLike = None) -> np.ndarray:
     """RAW (7, H, W) uint8 HOST scene -> (H, W) int32 labels on ``device``
     (CUDA unless named), with the scene's copy to the device streamed
-    under the stretch and pass-B/C compute:
+    under its counting:
 
-      * the global statistics come from the host's raw histograms
-        (``build_stretch_stats``: the raw-DN counts pushed through the
-        per-DN LUT, exact), built while the first chunks are copied;
       * raw row chunks are copied from pinned host memory on a side
-        stream, two ahead of the compute (``io.stream.HostToDevice``);
-        each is stretched by ``ops.kernels.lut_hist`` (uint8 out, with the
-        stretch params, no histogram), and the merged pass-B/C program
-        runs one chunk behind, so chunk i + 1's copy overlaps chunk i's
-        kernels with no host sync until pass B/C drains;
+        stream (``io.stream.HostToDevice``), each counted on the device as
+        it lands (``ops.kernels.raw_counts``, one accumulator for the
+        scene); the host fetches the (7, 256) raw-DN counts once and
+        derives every stretch table from them
+        (``stretch_stats_from_counts``: the LUT, the fixed-point params and
+        the stretched histogram, bit-equal to ``build_stretch_stats``);
+      * each resident raw chunk is stretched by ``ops.kernels.lut_hist``
+        (uint8 out, with the stretch params, no histogram) and freed, and
+        the merged pass-B/C program runs one chunk behind, with no host
+        sync until pass B/C drains;
       * pass D classifies from the stretched chunks left on the device
         (tiles assembled from edge rows, never copied again).
 
@@ -693,10 +697,19 @@ def classify_large_scene_streamed(
         def put(i):
             return up.put(arr[:, y0s[i]:min(h, y0s[i] + tile_rows), :])
 
-        raw = {i: put(i) for i in range(min(2, n_chunks))}
-        # the host statistics while the first chunks are on their way
-        with span("large.host_stats"):
-            lut, sp, hists = build_stretch_stats(arr, cal.gains, cal.biases)
+        # every raw chunk to the device, counted there as it lands; the
+        # tables from the counts on the host
+        with span("large.host_stats", bytes=arr.nbytes):
+            counts_d = torch.zeros((c, 256), dtype=torch.int32, device=dev)
+            raw = {}
+            with span("stretch.hist"):
+                for i in range(n_chunks):
+                    raw[i] = put(i)
+                    raw_counts(raw[i], counts_d)
+            with span("large.fetch", bytes=counts_d.nbytes):
+                counts = counts_d.cpu().numpy()
+            lut, sp, hists = stretch_stats_from_counts(counts, cal.gains,
+                                                       cal.biases)
             lut_d = torch.from_numpy(lut.astype(np.uint8)).to(dev)
             sp_d = torch.from_numpy(sp).to(dev)
             acc = _PassBC(compute_global_stats(arr, cfg,
@@ -727,8 +740,6 @@ def classify_large_scene_streamed(
             for i in range(n_chunks):
                 st.append(lut_hist(raw.pop(i), lut_d, out_u8=True, sp=sp_d,
                                    skip_hist=True))
-                if i + 2 < n_chunks:
-                    raw[i + 2] = put(i + 2)   # two copies in flight
                 if i >= 1:
                     dispatch_bc(i - 1)
             dispatch_bc(n_chunks - 1)

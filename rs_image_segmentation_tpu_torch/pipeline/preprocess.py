@@ -122,28 +122,71 @@ def calibrated_value_table(gains, biases) -> np.ndarray:
     return (g * dn + b).astype(np.float32)
 
 
-def build_stretch_lut(arr_u8: np.ndarray, gains, biases) -> np.ndarray:
-    """Exact (C, 256) f64 calibrate+stretch LUT for a uint8 scene.
+STRETCH_FIXUPS = 6      # per-band fixup slots in the fixed-point params
+_STRETCH_SHIFT = 16
+_DN = np.arange(256, dtype=np.float64)
+
+
+def _band_lut(g: float, b: float, vmin: int, vmax: int) -> np.ndarray:
+    """One band's exact (256,) f64 calibrate+stretch LUT (uint8 levels)
+    from its gain, bias and its min and max DN.
 
     The present-value min/max of a band is the calibrated value of its
     min/max DN (calibration is affine per band). DNs outside the band's
     [min, max] go below 0 or above 255 before the uint8 cast and wrap
     around; the scene never indexes them."""
+    cal = g * _DN + b
+    ends = (cal[vmin], cal[vmax])
+    mn, mx = min(ends), max(ends)  # handles negative gains too
+    return ((cal - mn) * 255.0 / (mx - mn)).astype(np.uint8)
+
+
+def _band_params(lut: np.ndarray, g: float, b: float, vmin: int,
+                 vmax: int) -> np.ndarray:
+    """One band's ``(3 + 2*STRETCH_FIXUPS,)`` int32 fixed-point params for
+    its LUT ``lut`` (:func:`_band_lut`); see :func:`build_stretch_params`."""
+    k = STRETCH_FIXUPS
+    sp = np.full(3 + 2 * k, -1, np.int32)
+    sp[0] = 0
+    mn, mx = sorted((g * vmin + b, g * vmax + b))
+    if mx <= mn:
+        return sp                                       # mode 0
+    a = 255.0 * g / (mx - mn)
+    off = (b - mn) * 255.0 / (mx - mn)
+    a32 = int(round(a * (1 << _STRETCH_SHIFT)))
+    if abs(a32) > (1 << 23):     # A32 * 255 must stay in int32
+        return sp                                       # mode 0
+    v = np.arange(vmin, vmax + 1, dtype=np.int64)
+    want = lut[vmin:vmax + 1].astype(np.int64)
+    best = None
+    for db in range(-2, 3):
+        b32 = int(round(off * (1 << _STRETCH_SHIFT))) + db
+        cand = np.clip((a32 * v + b32) >> _STRETCH_SHIFT, 0, 255)
+        bad = np.flatnonzero(cand != want)
+        if best is None or len(bad) < len(best[1]):
+            best = (b32, bad, cand)
+    b32, bad, cand = best
+    if len(bad) > k:
+        return sp                                       # mode 0
+    sp[0] = 1
+    sp[1] = a32
+    sp[2] = b32
+    for s, j in enumerate(bad):
+        sp[3 + s] = int(v[j])
+        sp[3 + k + s] = int(want[j] - cand[j])
+    return sp
+
+
+def build_stretch_lut(arr_u8: np.ndarray, gains, biases) -> np.ndarray:
+    """Exact (C, 256) f64 calibrate+stretch LUT for a uint8 scene, from
+    each band's min and max DN (two scans a band, no histogram)."""
     g = np.asarray(gains, np.float64)
     b = np.asarray(biases, np.float64)
-    c = arr_u8.shape[0]
-    dn = np.arange(256, dtype=np.float64)
-    lut = np.zeros((c, 256), np.float32)
-    for i in range(c):
-        cal = g[i] * dn + b[i]
-        ends = (cal[int(arr_u8[i].min())], cal[int(arr_u8[i].max())])
-        mn, mx = min(ends), max(ends)  # handles negative gains too
-        lut[i] = ((cal - mn) * 255.0 / (mx - mn)).astype(np.uint8)
+    lut = np.zeros((arr_u8.shape[0], 256), np.float32)
+    for i in range(arr_u8.shape[0]):
+        lut[i] = _band_lut(g[i], b[i], int(arr_u8[i].min()),
+                           int(arr_u8[i].max()))
     return lut
-
-
-STRETCH_FIXUPS = 6      # per-band fixup slots in the fixed-point params
-_STRETCH_SHIFT = 16
 
 
 def build_stretch_params(arr_u8: np.ndarray, gains, biases):
@@ -156,66 +199,62 @@ def build_stretch_params(arr_u8: np.ndarray, gains, biases):
     whose LUT the fixed point cannot reproduce within the fixup budget
     (full-range bands, near-constant bands). Unused fixup slots hold DN -1.
     Valid only for the scene the params were built from."""
-    lut = build_stretch_lut(arr_u8, gains, biases)
     g = np.asarray(gains, np.float64)
     b = np.asarray(biases, np.float64)
     c = arr_u8.shape[0]
-    k = STRETCH_FIXUPS
-    params = np.full((c, 3 + 2 * k), -1, np.int32)
-    params[:, 0] = 0
+    lut = np.zeros((c, 256), np.float32)
+    params = np.zeros((c, 3 + 2 * STRETCH_FIXUPS), np.int32)
     for i in range(c):
-        vmin = int(arr_u8[i].min())
-        vmax = int(arr_u8[i].max())
-        cal_lo = g[i] * vmin + b[i]
-        cal_hi = g[i] * vmax + b[i]
-        mn, mx = min(cal_lo, cal_hi), max(cal_lo, cal_hi)
-        if mx <= mn:
-            continue                                    # mode 0
-        a = 255.0 * g[i] / (mx - mn)
-        off = (b[i] - mn) * 255.0 / (mx - mn)
-        a32 = int(round(a * (1 << _STRETCH_SHIFT)))
-        if abs(a32) > (1 << 23):     # A32 * 255 must stay in int32
-            continue                                    # mode 0
-        v = np.arange(vmin, vmax + 1, dtype=np.int64)
-        want = lut[i, vmin:vmax + 1].astype(np.int64)
-        best = None
-        for db in range(-2, 3):
-            b32 = int(round(off * (1 << _STRETCH_SHIFT))) + db
-            cand = np.clip((a32 * v + b32) >> _STRETCH_SHIFT, 0, 255)
-            bad = np.flatnonzero(cand != want)
-            if best is None or len(bad) < len(best[1]):
-                best = (b32, bad, cand)
-        b32, bad, cand = best
-        if len(bad) > k:
-            continue                                    # mode 0
-        params[i, 0] = 1
-        params[i, 1] = a32
-        params[i, 2] = b32
-        for s, j in enumerate(bad):
-            params[i, 3 + s] = int(v[j])
-            params[i, 3 + k + s] = int(want[j] - cand[j])
+        vmin, vmax = int(arr_u8[i].min()), int(arr_u8[i].max())
+        lut[i] = _band_lut(g[i], b[i], vmin, vmax)
+        params[i] = _band_params(lut[i], g[i], b[i], vmin, vmax)
     return lut, params
+
+
+def stretch_stats_from_counts(counts: np.ndarray, gains, biases):
+    """``(lut, params, hist_stretched)`` of a scene from its ``(C, 256)``
+    raw-DN counts alone, bit-equal to :func:`build_stretch_stats` on the
+    scene: a band's min and max DN are its first and last non-empty bins,
+    and the stretched histogram is the counts pushed through the LUT (DNs
+    outside [min, max] have zero counts, so their wrapped LUT entries add
+    nothing). O(C x 256) on the host, marked ``stretch.params``."""
+    counts = np.asarray(counts, np.int64)
+    g = np.asarray(gains, np.float64)
+    b = np.asarray(biases, np.float64)
+    c = counts.shape[0]
+    lut = np.zeros((c, 256), np.float32)
+    params = np.zeros((c, 3 + 2 * STRETCH_FIXUPS), np.int32)
+    hist = np.zeros((c, 256), np.int64)
+    with span("stretch.params"):
+        for i in range(c):
+            present = np.flatnonzero(counts[i])
+            if not present.size:
+                raise ValueError(f"band {i} has no pixels")
+            vmin, vmax = int(present[0]), int(present[-1])
+            lut[i] = _band_lut(g[i], b[i], vmin, vmax)
+            params[i] = _band_params(lut[i], g[i], b[i], vmin, vmax)
+            np.add.at(hist[i], lut[i].astype(np.int64), counts[i])
+    return lut, params, hist.astype(np.int32)
 
 
 def build_stretch_stats(arr_u8: np.ndarray, gains, biases):
     """``(lut, params, hist_stretched)``: :func:`build_stretch_params` plus
     the exact (C, 256) int32 histogram of the stretched scene — the raw-DN
     bincount pushed through the LUT (the LUT is a per-DN function, so this
-    equals histogramming the stretched image). Each band is counted by
-    ``io.native.hist_u8`` (the C++ codec library), and by ``np.bincount``
-    where that library cannot be built. The two parts are marked
-    ``stretch.params`` and ``stretch.hist``."""
-    with span("stretch.params"):
-        lut, params = build_stretch_params(arr_u8, gains, biases)
+    equals histogramming the stretched image). Each band is counted once,
+    by ``io.native.hist_u8`` (the C++ codec library), or by
+    ``np.bincount`` where that library cannot be built (``stretch.hist``),
+    and every table comes from the counts
+    (:func:`stretch_stats_from_counts`, ``stretch.params``)."""
     c = arr_u8.shape[0]
-    hist = np.zeros((c, 256), np.int64)
+    counts = np.zeros((c, 256), np.int64)
     with span("stretch.hist"):
         for i in range(c):
             hist_raw = _native.hist_u8(arr_u8[i])
             if hist_raw is None:
                 hist_raw = np.bincount(arr_u8[i].reshape(-1), minlength=256)
-            np.add.at(hist[i], lut[i].astype(np.int64), hist_raw)
-    return lut, params, hist.astype(np.int32)
+            counts[i] = hist_raw
+    return stretch_stats_from_counts(counts, gains, biases)
 
 
 def run_preprocessing_stage(input_path: str, output_path: str,

@@ -33,7 +33,11 @@ scenes of 7 x 600 x 600 from seed 0):
   ``preprocess_bands_f32`` passes the configuration's) and as tensors on
   the card;
 * ``fused_spectral_indices`` on stage 2's normalised bands of scene 0
-  (the uint8 stage-1 artifact through ``normalize_bands``).
+  (the uint8 stage-1 artifact through ``normalize_bands``);
+* ``raw_counts`` on the streamed large scene's raw chunk (7 x 504 x 6000
+  of a 6000 x 6000 reflected tiling of scene 0) and on the whole scene
+  as the route counts it, 12 chunks into one accumulator, with its plain
+  version's time on the chunk.
 
 ``lut_hist``, ``fused_calibrate_stretch`` and ``fused_spectral_indices``
 also report the kernels one call launches and whether its trace holds a
@@ -47,7 +51,7 @@ kernels can be timed by one script on one card:
     python3 rs_image_segmentation_tpu_torch/tools/kernel_times.py \\
         [--root DIR] [--kernels hist_dense,glcm_grid] [--out FILE.json]
 
-``--kernels`` picks the kernels to time (default: all eight).
+``--kernels`` picks the kernels to time (default: all nine).
 
 The timing helpers (``l2_flusher``, ``cold_ms``, ``trace_ms``,
 ``kernel_device_ms``, ``kernel_numbers``) and the fixtures
@@ -78,7 +82,8 @@ BINS = 32768                   # the batched rule path's component-id cap
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 KERNELS = ("forest_labels", "ccmin_prop", "cc_labels", "hist_dense",
            "glcm_grid", "lut_hist", "fused_calibrate_stretch",
-           "fused_spectral_indices")
+           "fused_spectral_indices", "raw_counts")
+CHUNK_ROWS = 504               # the streamed large scene's row chunk
 
 
 def _need_card() -> None:
@@ -526,6 +531,41 @@ def measure(dev, which=KERNELS) -> dict:
         res["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
         out[f"fused_spectral_indices, stage 2's normalised bands, "
             f"{' x '.join(map(str, bands01.shape))}"] = res
+
+    if "raw_counts" in which:
+        big = reflected_tiling(scenes[0], LARGE)
+        chunks = [torch.from_numpy(np.ascontiguousarray(
+            big[:, y:y + CHUNK_ROWS])).to(dev)
+            for y in range(0, LARGE, CHUNK_ROWS)]
+        # the timed calls add into acc until its bins wrap (integer adds,
+        # harmless to the times); the counts are checked after, from zero
+        acc = torch.zeros((big.shape[0], 256), dtype=torch.int32, device=dev)
+        # each input byte read once, a call's counts read and written once
+        acc_bytes = 2 * acc.numel() * 4
+        for key, call, nbytes in (
+                (f"the chunk, {' x '.join(map(str, chunks[0].shape))}",
+                 lambda: kernels.raw_counts(chunks[0], acc),
+                 chunks[0].numel() + acc_bytes),
+                (f"the scene, {len(chunks)} chunks into one accumulator, "
+                 f"{big.shape[0]} x {LARGE} x {LARGE}",
+                 lambda: [kernels.raw_counts(c, acc) for c in chunks],
+                 big.size + len(chunks) * acc_bytes)):
+            res = kernel_numbers(call, flush)
+            res.update(launch_numbers(call))
+            res["bytes"] = nbytes
+            res["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+            if key.startswith("the chunk"):
+                res["plain_ms"] = cold_ms(
+                    lambda: kernels.raw_counts_plain(chunks[0], acc), flush, 5)
+            out[f"raw_counts, {key}"] = res
+        acc.zero_()
+        for c in chunks:
+            kernels.raw_counts(c, acc)
+        want = np.stack([np.bincount(b.reshape(-1), minlength=256)
+                         for b in big])
+        if not np.array_equal(acc.cpu().numpy(), want):
+            raise RuntimeError("raw_counts: the scene's counts differ from "
+                               "np.bincount")
     return out
 
 

@@ -644,8 +644,15 @@ def _rendered_lut_hist(scene, lut, unit, blocks, threads, unroll):
     lookups counted into its warp's bins with equal values of a 4-pixel
     word merged, then flush the warps' sums into the histogram; the unit
     that straddles a plane boundary is done byte by byte, straight into the
-    histogram. Returns the levels, the histogram and the shared adds."""
+    histogram. ``lut=None`` renders ``raw_counts_kernel``, the same body
+    counting the raw DNs and storing nothing. Returns the levels, the
+    histogram and the shared adds."""
     planes, n = scene.shape
+    if lut is None:
+        lut = np.tile(np.arange(256), (planes, 1))
+        stored = False
+    else:
+        stored = True
     flat = scene.reshape(-1)
     total = planes * n
     grid, span = kernels.lut_hist_plan(planes, n, unit, blocks)
@@ -669,7 +676,8 @@ def _rendered_lut_hist(scene, lut, unit, blocks, threads, unroll):
                         if i >= we:
                             continue
                         levels = lut[p][flat[i * unit:(i + 1) * unit]]
-                        out[i * unit:(i + 1) * unit] = levels
+                        if stored:
+                            out[i * unit:(i + 1) * unit] = levels
                         if unit == 1:
                             bins[t // 32, levels[0]] += 1
                             adds += 1
@@ -685,8 +693,9 @@ def _rendered_lut_hist(scene, lut, unit, blocks, threads, unroll):
                 continue
             for j in range(w * unit, min(w * unit + unit, total)):
                 q = p - 1 if j < b else p
-                out[j] = lut[q][flat[j]]
-                hist[q, out[j]] += 1
+                if stored:
+                    out[j] = lut[q][flat[j]]
+                hist[q, lut[q][flat[j]]] += 1
     return out.reshape(planes, n), hist, adds
 
 
@@ -819,3 +828,159 @@ def test_lut_hist_unit_and_plan():
     assert kernels.lut_hist_instance(7, 601 * 599, 4, False) == "ranges"
     assert kernels.lut_hist_instance(7, 360000, 1, False) == "ranges"
     assert kernels.lut_hist_instance(65536, 16, 4, False) == "ranges"
+
+
+# ------------------------------------------------- raw_counts (raw DN counts)
+
+def _raw_counts_case(name):
+    """A (C, H, W) uint8 chunk of the streamed route's shapes and edges."""
+    rng = np.random.default_rng(len(name))
+    shape = {"chunk (7, 504, 6000)": (7, 504, 6000),
+             "ragged last chunk (7, 456, 6000)": (7, 456, 6000),
+             "unaligned (7, 37, 61)": (7, 37, 61),
+             "one-row planes (7, 1, 6000)": (7, 1, 6000),
+             "one-row planes (3, 1, 13)": (3, 1, 13),
+             "all 0": (7, 37, 61), "all 255": (7, 37, 61)}[name]
+    if name == "all 0":
+        return np.zeros(shape, np.uint8)
+    if name == "all 255":
+        return np.full(shape, 255, np.uint8)
+    return rng.integers(0, 256, shape, dtype=np.uint8)
+
+
+RAW_COUNT_CASES = ["chunk (7, 504, 6000)", "ragged last chunk (7, 456, 6000)",
+                   "unaligned (7, 37, 61)", "one-row planes (7, 1, 6000)",
+                   "one-row planes (3, 1, 13)", "all 0", "all 255"]
+
+
+def _bincounts(chunk):
+    return np.stack([np.bincount(p.reshape(-1), minlength=256)
+                     for p in chunk])
+
+
+@pytest.mark.parametrize("name", RAW_COUNT_CASES)
+def test_raw_counts_plain_matches_bincount(name):
+    chunk = _raw_counts_case(name)
+    counts = torch.zeros((chunk.shape[0], 256), dtype=torch.int32)
+    before = kernels.raw_counts.launches
+    got = kernels.raw_counts(torch.from_numpy(chunk), counts)
+    assert got is counts and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), _bincounts(chunk))
+    assert kernels.raw_counts.launches == before      # CPU: plain, no launch
+
+
+def test_raw_counts_accumulates_over_calls():
+    """A scene's row chunks counted into one accumulator count the scene."""
+    scene = np.random.default_rng(3).integers(0, 256, (7, 100, 61),
+                                              dtype=np.uint8)
+    counts = torch.zeros((7, 256), dtype=torch.int32)
+    for y in range(0, 100, 42):
+        kernels.raw_counts(torch.from_numpy(scene[:, y:y + 42].copy()),
+                           counts)
+    np.testing.assert_array_equal(counts.numpy(), _bincounts(scene))
+    kernels.raw_counts(torch.from_numpy(scene), counts)
+    np.testing.assert_array_equal(counts.numpy(), 2 * _bincounts(scene))
+
+
+@pytest.mark.parametrize("planes,n,unit,blocks,threads,unroll,smooth", [
+    (7, 3000, 16, 40, 8, 2, False),    # 16-byte units, n % 16 == 8
+    (7, 3000, 16, 40, 8, 2, True),
+    (3, 2257, 4, 9, 16, 4, False),     # (37, 61) planes: 4-byte aligned
+    (3, 2257, 1, 9, 16, 4, True),      # unaligned base: the scalar unit
+    (2, 13, 4, 528, 4, 2, False),      # planes of a few words
+    (1, 4096, 16, 528, kernels.LUT_THREADS, kernels.LUT_UNROLL, True),
+    (40, 15, 4, 2, 4, 3, False),       # many planes a block
+])
+def test_raw_counts_rendering_matches_plain(planes, n, unit, blocks, threads,
+                                            unroll, smooth):
+    """``raw_counts_kernel`` is lut_hist's ranges body with no table: its
+    rendering counts every raw DN once, stores nothing, and adds into the
+    accumulator the plain version adds into."""
+    scene, _ = _lut_hist_case(planes, n, smooth, planes * n + unit)
+    got, hist, adds = _rendered_lut_hist(scene, None, unit, blocks, threads,
+                                         unroll)
+    assert (got == -1).all()                      # nothing stored
+    assert int(hist.sum()) == planes * n          # every DN counted once
+    np.testing.assert_array_equal(
+        hist, kernels.raw_counts_plain(
+            torch.from_numpy(scene[:, None]),
+            torch.zeros((planes, 256), dtype=torch.int32)).numpy())
+    if smooth and unit > 1:
+        assert adds < planes * n * 0.6            # equal DNs merged
+
+
+def test_raw_counts_unit_and_plan():
+    """The count takes lut_hist's units from the chunk's base alone, and
+    lut_hist's ranges over the streamed route's chunks."""
+    buf = torch.zeros(7 * 504 * 6000 + 16, dtype=torch.uint8)
+    for off, want in ((0, 16), (1, 1), (4, 4), (8, 4), (16, 16)):
+        view = buf[off:off + 7 * 504 * 6000].view(7, 504, 6000)
+        assert kernels.lut_hist_unit(view) == want, off
+    tiny = torch.zeros((3, 1, 13), dtype=torch.uint8)
+    assert kernels.lut_hist_unit(tiny) == 4
+    assert kernels.lut_hist_unit(tiny[:, :, :3]) == 1
+    # the route's chunks on 132 SMs: 528 ranges of 16-byte units
+    assert kernels.lut_hist_plan(7, 504 * 6000, 16, 528) == (528, 2506)
+    assert kernels.lut_hist_plan(7, 456 * 6000, 16, 528) == (528, 2268)
+
+
+def test_raw_counts_argument_checks():
+    chunk = torch.zeros((7, 8, 8), dtype=torch.uint8)
+    counts = torch.zeros((7, 256), dtype=torch.int32)
+    with pytest.raises(ValueError, match="chunk_u8"):
+        kernels.raw_counts(chunk.to(torch.int32), counts)
+    with pytest.raises(ValueError, match="chunk_u8"):
+        kernels.raw_counts(chunk[None], counts)
+    with pytest.raises(ValueError, match="chunk_u8"):
+        kernels.raw_counts(chunk[:, :0], counts)
+    with pytest.raises(ValueError, match="counts must be"):
+        kernels.raw_counts(chunk, counts.to(torch.int64))
+    with pytest.raises(ValueError, match="counts must be"):
+        kernels.raw_counts(chunk, counts[:6])
+    with pytest.raises(ValueError, match="counts must be"):
+        kernels.raw_counts(chunk, torch.zeros((7, 255), dtype=torch.int32))
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        kernels.raw_counts(chunk.to("meta"), counts.to("meta"))
+    with pytest.raises(ValueError, match="tensors on"):
+        kernels.raw_counts(chunk, counts.to("meta"))
+    before = kernels.raw_counts.launches
+    kernels.raw_counts(chunk, counts)
+    assert kernels.raw_counts.launches == before
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("offset", [0, 1, 5])
+@pytest.mark.parametrize("name", RAW_COUNT_CASES)
+def test_raw_counts_kernel_matches_plain_on_the_card(card, name, offset):
+    chunk = torch.from_numpy(_raw_counts_case(name)).to(card)
+    if offset:          # a view whose planes start off 16-byte alignment
+        buf = torch.empty(chunk.numel() + 16, dtype=torch.uint8, device=card)
+        view = buf[offset:offset + chunk.numel()].view(chunk.shape)
+        view.copy_(chunk)
+        chunk = view
+    zeros = torch.zeros((chunk.shape[0], 256), dtype=torch.int32, device=card)
+    before = kernels.raw_counts.launches
+    got = kernels.raw_counts(chunk, zeros.clone())
+    assert kernels.raw_counts.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, kernels.raw_counts_plain(chunk, zeros.clone()))
+
+
+@pytest.mark.card
+def test_raw_counts_kernel_accumulates_on_the_card(card):
+    scene = np.random.default_rng(4).integers(0, 256, (7, 1100, 600),
+                                              dtype=np.uint8)
+    counts = torch.zeros((7, 256), dtype=torch.int32, device=card)
+    before = kernels.raw_counts.launches
+    for y in range(0, 1100, 504):
+        kernels.raw_counts(torch.from_numpy(scene[:, y:y + 504].copy())
+                           .to(card), counts)
+    assert kernels.raw_counts.launches == before + 3
+    np.testing.assert_array_equal(counts.cpu().numpy(), _bincounts(scene))

@@ -435,3 +435,69 @@ def test_entry_points_raise_without_cuda(scenes, forest, tmp_path, entry):
     raw, pre, _ = scenes["252x252"]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ENTRY_POINTS[entry](raw, pre, forest[1], str(tmp_path / "c"))
+
+
+# ---------------------------------------- the streamed route's raw counts
+
+def test_streamed_counts_every_chunk_once(scenes, forest, monkeypatch):
+    """The streamed route counts each raw chunk once, into one
+    accumulator, and derives the tables ``build_stretch_stats`` gives."""
+    from rs_image_segmentation_tpu_torch.pipeline import preprocess as tpre
+    raw = scenes["260x252"][0]
+    calls, derived = [], []
+    real_count = tlarge.raw_counts
+    real_derive = tlarge.stretch_stats_from_counts
+
+    def count(chunk, acc):
+        calls.append((tuple(chunk.shape), acc.data_ptr()))
+        return real_count(chunk, acc)
+
+    def derive(counts, gains, biases):
+        derived.append(real_derive(counts, gains, biases))
+        return derived[-1]
+
+    monkeypatch.setattr(tlarge, "raw_counts", count)
+    monkeypatch.setattr(tlarge, "stretch_stats_from_counts", derive)
+    tlarge.classify_large_scene_streamed(raw, forest[1], CAL, CFG,
+                                         tile_rows=TILE, device="cpu")
+    assert [s for s, _ in calls] == [(7, 63, 252)] * 4 + [(7, 8, 252)]
+    assert len({p for _, p in calls}) == 1
+    want = tpre.build_stretch_stats(raw, CAL.gains, CAL.biases)
+    assert len(derived) == 1
+    for g, r in zip(derived[0], want):
+        assert g.dtype == r.dtype and np.array_equal(g, r)
+
+
+@pytest.mark.card
+def test_streamed_counts_on_the_card_once_a_chunk():
+    """On the card a streamed 6000 x 6000 call launches the count kernel
+    once a chunk (12), records the raw bytes it counted on
+    ``large.host_stats``, and maps as the resident route does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from torch.profiler import ProfilerActivity, profile
+
+    from rs_image_segmentation_tpu_torch.models.forest import GemmForest
+    from rs_image_segmentation_tpu_torch.ops import kernels
+    from rs_image_segmentation_tpu_torch.tools.fixtures import rule_forest
+    from rs_image_segmentation_tpu_torch.tools.kernel_times import (
+        reflected_tiling)
+    from rs_image_segmentation_tpu_torch.utils import timing
+    dev = torch.device("cuda")
+    tile = synthetic_scenes(1, 600, 600, seed=0)[0]
+    raw = reflected_tiling(tile, 6000)
+    pre, hists = tlarge.preprocess_large(raw, CAL, return_hist=True,
+                                         device=dev)
+    stack = hierarchical_stack_fused(pre[:, :600, :600], CFG,
+                                     device=dev).cpu().numpy()
+    gf = GemmForest(*(t.to(dev) for t in rule_forest(
+        stack.transpose(2, 0, 1))[0]))
+    before = kernels.raw_counts.launches
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = tlarge.classify_large_scene_streamed(raw, gf, CAL, CFG,
+                                                   tile_rows=504, device=dev)
+    assert kernels.raw_counts.launches == before + 12
+    host, = [r for r in timing.spans() if r.name == "large.host_stats"]
+    assert host.counts["bytes"] == raw.nbytes
+    np.testing.assert_array_equal(got, tlarge.classify_large_scene(
+        pre, gf, CFG, tile_rows=504, hists=hists, device=dev))

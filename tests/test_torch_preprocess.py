@@ -138,3 +138,56 @@ def test_percentiles_from_counts_exact(rng):
                                          jnp.asarray(values), qs, 4001)
     assert got.dtype == torch.float32
     assert np.array_equal(got.numpy(), np.asarray(ref))
+
+
+def _counts_case(name):
+    """``(scene, gains, biases)`` of a derivation-from-counts case."""
+    scene = synthetic_scenes(1, 64, 80, seed=11)[0]
+    gains, biases = GAINS.copy(), BIASES.copy()
+    if name == "a constant band":
+        scene[2] = 7
+    elif name == "a band spanning 0-255":
+        scene[FULL_RANGE_BAND] = np.arange(scene[0].size).reshape(
+            scene[0].shape) % 256
+    elif name == "a single-DN band":
+        scene = scene[:, :1, :1].copy()      # every band one pixel
+    elif name == "a negative gain":
+        gains[1] = -gains[1]
+    elif name == "a gain whose A32 passes 2**23":
+        scene[4] = 100 + (scene[4] > 128)    # two adjacent DNs: A = 255
+    return scene, gains, biases
+
+
+@pytest.mark.parametrize("name", [
+    "seeded tiles", "a constant band", "a band spanning 0-255",
+    "a single-DN band", "a negative gain", "a gain whose A32 passes 2**23"])
+def test_stretch_stats_from_counts_bit_equal_to_jax(name):
+    scene, gains, biases = _counts_case(name)
+    counts = np.stack([np.bincount(b.reshape(-1), minlength=256)
+                       for b in scene])
+    got = tpre.stretch_stats_from_counts(counts, gains, biases)
+    ref = jpre.build_stretch_stats(scene, gains, biases)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and np.array_equal(g, r), name
+    # the port's host route derives from the same counts
+    for g, r in zip(tpre.build_stretch_stats(scene, gains, biases), ref):
+        assert g.dtype == r.dtype and np.array_equal(g, r), name
+    # int32 counts, as the card's accumulator returns them, give the same
+    for g, r in zip(tpre.stretch_stats_from_counts(
+            counts.astype(np.int32), gains, biases), ref):
+        assert np.array_equal(g, r), name
+    sp = got[1]
+    if name == "a gain whose A32 passes 2**23":
+        assert sp[4, 0] == 0
+    if name == "a negative gain":
+        assert sp[1, 0] == 1 and sp[1, 1] < 0
+    if name in ("a constant band", "a band spanning 0-255"):
+        band = 2 if name == "a constant band" else FULL_RANGE_BAND
+        assert sp[band, 0] == 0
+
+
+def test_stretch_stats_from_counts_refuses_an_empty_band():
+    counts = np.zeros((2, 256), np.int64)
+    counts[0, 9] = 4
+    with pytest.raises(ValueError, match="band 1 has no pixels"):
+        tpre.stretch_stats_from_counts(counts, GAINS[:2], BIASES[:2])

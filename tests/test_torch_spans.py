@@ -250,17 +250,21 @@ def test_streamed_scene_spans(small_scene):
     assert host.end <= bc.start and bc.end <= d.start
     for name in ("stretch.params", "stretch.hist"):
         assert [r.parent for r in _by_name(recs, name)] == [host.id]
-    # one fetch a blocking copy: pass B/C's sums and its grids, then one
-    # label tile each of pass D's ceil(104 / 42) = 3
+    # the raw bytes counted on the device
+    assert host.counts["bytes"] == small_scene[0].nbytes
+    # one fetch a blocking copy: the (7, 256) int32 raw counts, pass B/C's
+    # sums and its grids, then one label tile each of pass D's
+    # ceil(104 / 42) = 3
     fetches = _by_name(recs, "large.fetch")
-    assert [f.parent for f in fetches] == [bc.id] * 2 + [d.id] * 3
+    assert [f.parent for f in fetches] == [host.id] + [bc.id] * 2 + [d.id] * 3
+    assert fetches[0].counts["bytes"] == 7 * 256 * 4
     h, w = off.shape
     tiles = [min(TILE_ROWS, h - y) for y in range(0, h, TILE_ROWS)]
     item = torch.empty((), dtype=large_scene._label_transfer_dtype(
         small_scene[1])).element_size()
-    assert [f.counts["bytes"] for f in fetches[2:]] == [
+    assert [f.counts["bytes"] for f in fetches[3:]] == [
         r * w * item for r in tiles]
-    assert all(f.counts["bytes"] > 0 for f in fetches[:2])
+    assert all(f.counts["bytes"] > 0 for f in fetches[1:3])
 
 
 @pytest.fixture(scope="module")
