@@ -146,8 +146,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
      KMeans per-scene, shared-fit and warm-start engines equal to the
      direct program; phase 12's noise scene rerouted once and equal to
      ``rule_based_scenes_turbo``; a 20 480-leaf forest (past
-     ``GEMM_MAX_LEAVES``) through the fallback, equal to
-     ``hierarchical_stack_fused`` + ``forest_predict``; the launches of
+     ``GEMM_MAX_LEAVES``) on the batched program, equal to its direct
+     program at B = 1 and to the plain walk; the launches of
      each route (one supervised batch: ``lut_hist`` and ``forest_labels``
      once each, and no plain version); HTTP on port 0 (``/healthz`` backend cuda, npy and
      GeoTIFF round trips equal to the engine, ``/metrics``, the server's
@@ -188,7 +188,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
      its streamed branch on two 16-bit copies (per scene one launch each
      of the stretch, the indices, ``glcm_grid`` and the forest; >= 99.9 %
      equal to its ``device="cpu"`` run) and a 20 480-leaf forest past the
-     leaf cap (equal to ``hierarchical_stack_fused`` + ``forest_predict``);
+     leaf cap on the turbo branch (one launch each of ``lut_hist`` and
+     ``forest_labels``, equal to its direct program at B = 1 and to the
+     plain walk);
      ``rs-seg-torch-batch`` with an npz forest (every file byte-equal to
      the workflow's); ``rs-seg-torch-classify-large`` ``--raw`` with the
      npz on a 7 x 6000 x 6000 reflected tiling (the map read back
@@ -257,9 +259,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from rs_image_segmentation_tpu_torch.tools.kernel_times import (  # noqa: E402
-    cold_ms, dn16, graph_cc_masks, kernel_device_ms, kernel_numbers,
-    l2_flusher, large_forest, launch_numbers, launched_kernels, mean_numbers,
-    reflected_tiling, stage1_dns)
+    DEEP_FOREST_SAMPLES, cold_ms, dn16, fitted_forest, graph_cc_masks,
+    kernel_device_ms, kernel_numbers, l2_flusher, large_forest,
+    launch_numbers, launched_kernels, mean_numbers, reflected_tiling,
+    stage1_dns)
 
 BATCH, BANDS, HEIGHT, WIDTH = 8, 7, 600, 600
 N_TREES = 100
@@ -1674,6 +1677,96 @@ def forest_predict_phase(dev, stack0, forest, depth, main_labels0) -> dict:
     return launches
 
 
+def deep_forest_phase(dev, cfg, scenes_d, luts_d, params_d, hists_d,
+                      stack0, flush) -> dict:
+    """Phase 23: the source's forest at an ROI raster's scale (100 trees
+    of unlimited depth fitted by the port's trainer on rule labels of
+    ``DEEP_FOREST_SAMPLES`` pixels of scene 0's stack, an ROI raster's
+    labelled pixels: some 20 000 leaves, past ``GEMM_MAX_LEAVES``) on the
+    main path at 8 x 19 x 600 x 600: its GEMM form's path sparse, its
+    packing on the kernel's global-memory instance; one launch each of
+    ``lut_hist`` and ``forest_labels`` a batch through
+    ``classify_scenes_turbo``, whose maps are bit-equal to the plain walk
+    of ``tests/forest_walk_ref.py`` over the program's own stacks on the
+    card (scene 0 also to ``gemm_labels_cm`` over the sparse path); the
+    kernel's device ms back to back, L2 flushed and alone, against its
+    bound, and the main path's wall ms a batch."""
+    from rs_image_segmentation_tpu_torch.models.forest import (
+        GEMM_MAX_LEAVES, GemmForest, _gemm_for)
+    from rs_image_segmentation_tpu_torch.ops import kernels
+    from rs_image_segmentation_tpu_torch.pipeline import turbo
+    from tests.forest_walk_ref import fields_of, walk_labels
+
+    t0 = time.perf_counter()
+    flat = fitted_forest(stack0, DEEP_FOREST_SAMPLES)
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gf = GemmForest(*(t.to(dev) for t in _gemm_for(flat, 19)))
+    facts = kernels._packed_on(gf, dev)[2]
+    pack_s = time.perf_counter() - t0
+    leaves = int(gf.path.shape[1])
+    check(leaves > GEMM_MAX_LEAVES and gf.path.is_sparse
+          and facts["global_instance"] == 1,
+          f"the deep forest ({leaves} leaves) is past the cap, its path "
+          f"sparse, on the global-memory instance: {facts}")
+
+    def deep_path():
+        return turbo.classify_scenes_turbo(
+            scenes_d, luts_d, gf, cfg, stretch_params=params_d,
+            stretch_hists=hists_d, device=dev)
+
+    maps, launches = counted(deep_path)
+    check(launches["lut_hist"] == 1 and launches["forest_labels"] == 1
+          and all(n == 0 for k, n in launches.items()
+                  if k not in ("lut_hist", "forest_labels")),
+          f"the deep forest's batch launches lut_hist and forest_labels "
+          f"once each: {launches}")
+    stacks = turbo._stack_cm_from_parts(
+        *turbo._preamble(scenes_d, luts_d, params_d, hists_d), cfg)
+    x_cm = stacks.reshape(BATCH, 19, HEIGHT * WIDTH)
+    labels = kernels.forest_labels(gf, x_cm)
+    fields = fields_of(flat)
+    walked = torch.stack([walk_labels(fields, xb.T) for xb in x_cm])
+    diff = int((labels.long() != walked).sum().item())
+    check(diff == 0, f"forest_labels with the deep forest bit-equal to the "
+          f"plain walk ({diff} differ)")
+    check(torch.equal(maps.reshape(BATCH, -1).long(), walked),
+          "the deep forest's maps are the plain walk over the program's "
+          "stacks")
+    plain0 = kernels.gemm_labels_cm(gf, x_cm[0])
+    check(torch.equal(plain0, labels[0]), "scene 0: forest_labels equals "
+          "gemm_labels_cm over the sparse path")
+    walls = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        deep_path()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    nums = kernel_numbers(lambda: kernels.forest_labels(gf, x_cm), flush,
+                          3, 5, 3)
+    decisions = fired_decisions(gf, x_cm, 8192)
+    n_classes = gf.leaf_dist.shape[1]
+    px = BATCH * HEIGHT * WIDTH
+    bms, by = bound(x_cm.numel() * 4 + px * 4,
+                    decisions + px * (N_TREES * n_classes + n_classes))
+    out = {"leaves": leaves, "fit_s": fit_s, "pack_s": pack_s, **facts,
+           "decisions": decisions,
+           "walk_efficiency": decisions / (px * facts["walk_depth"]),
+           "launches": {k: n for k, n in launches.items() if n},
+           "main_path_ms": statistics.median(walls[1:]),
+           "bound_ms": bms, "bound_by": by, **timing_keys(nums)}
+    print(f"deep forest: {leaves} leaves fitted in {fit_s:.1f} s, packed "
+          f"in {pack_s:.2f} s ({facts}); launches {out['launches']}; maps "
+          f"bit-equal to the plain walk; forest_labels device ms (back to "
+          f"back / L2 flushed / alone) {nums['ms']:.4f} / "
+          f"{nums['cold_ms']:.4f} / {nums['alone_ms']} against a bound of "
+          f"{bms:.4f} ({by}); walk efficiency "
+          f"{out['walk_efficiency']:.4f}; main path {out['main_path_ms']:.3f}"
+          f" ms a batch (runs {[round(w, 3) for w in walls]})", flush=True)
+    return out
+
+
 LARGE_TILE = 504                   # bench.py's tile_rows at 36 MP
 MID = 1260                         # side of the card-against-CPU tiling
 
@@ -2270,7 +2363,7 @@ def serving_phases(dev, cfg, scenes, flat_forest, depth, gf, stack0, smi,
     default ``EngineConfig``) and its HTTP server on the card, with the
     supervised cell's forest, at 7 x 600 x 600: warm-up, bucket padding
     bit-exact per scene, the three KMeans modes, the rule overflow
-    reroute, the forest fallback past ``GEMM_MAX_LEAVES``, HTTP npy and
+    reroute, a forest past ``GEMM_MAX_LEAVES``, HTTP npy and
     GeoTIFF round trips, launch counts, and latencies. Returns the
     launches of one supervised and one rule batch, and the numbers."""
     import tempfile
@@ -2280,12 +2373,9 @@ def serving_phases(dev, cfg, scenes, flat_forest, depth, gf, stack0, smi,
     from rs_image_segmentation_tpu_torch.core.types import GeoMeta
     from rs_image_segmentation_tpu_torch.io import native, tiff
     from rs_image_segmentation_tpu_torch.models.forest import (
-        GEMM_MAX_LEAVES, FlatForest, _gemm_for, flat_forest_from_numpy,
-        forest_predict, n_leaves)
-    from rs_image_segmentation_tpu_torch.ops.kernels import apply_u8_lut
+        GEMM_MAX_LEAVES, GemmForest, _gemm_for, flat_forest_from_numpy,
+        n_leaves)
     from rs_image_segmentation_tpu_torch.pipeline import turbo
-    from rs_image_segmentation_tpu_torch.pipeline.features import (
-        hierarchical_stack_fused)
     from rs_image_segmentation_tpu_torch.serving import client
     from rs_image_segmentation_tpu_torch.serving.engine import (
         EngineConfig, InferenceEngine)
@@ -2293,6 +2383,7 @@ def serving_phases(dev, cfg, scenes, flat_forest, depth, gf, stack0, smi,
     from rs_image_segmentation_tpu_torch.tools.fixtures import (
         deep_forest_fields, stretch_stats_batch)
     from rs_image_segmentation_tpu_torch.utils.timing import cuda_time_ms
+    from tests.forest_walk_ref import walk_labels
 
     out = {}
     # ---- 19a. the native codec and the host statistics
@@ -2462,33 +2553,41 @@ def serving_phases(dev, cfg, scenes, flat_forest, depth, gf, stack0, smi,
     print("serving [rule_based]: the noise scene rerouted "
           f"({reroutes}), equal to rule_based_scenes_turbo", flush=True)
 
-    # ---- 19g. the forest fallback past GEMM_MAX_LEAVES
-    deep = flat_forest_from_numpy(deep_forest_fields(stack0))
+    # ---- 19g. a forest past GEMM_MAX_LEAVES on the batched program
+    deep_fields = deep_forest_fields(stack0)
+    deep = flat_forest_from_numpy(deep_fields)
     leaves = n_leaves(deep)
-    check(leaves > GEMM_MAX_LEAVES and _gemm_for(deep, 19) is None,
-          f"the deep forest ({leaves} leaves) is past the cap")
+    deep_gf = _gemm_for(deep, 19)
+    check(leaves > GEMM_MAX_LEAVES and deep_gf.path.is_sparse,
+          f"the deep forest ({leaves} leaves) is past the cap, its path "
+          f"sparse")
     with InferenceEngine(deep, 12, cfg=cfg, device=dev) as deep_eng:
-        check(deep_eng.stats()["gemm_forest"] is False,
-              "the fallback engine has no GEMM forest")
+        check(deep_eng.stats()["gemm_forest"] is True,
+              "the engine holds the deep forest's GEMM form")
         t0 = time.perf_counter()
-        fb, launches["random_forest, fallback"] = counted(
+        fb, launches["random_forest, past the cap"] = counted(
             lambda: results(submit_together(deep_eng, scenes[:2],
                                             "random_forest")))
         fb_s = time.perf_counter() - t0
         fb_sizes = deep_eng.stats()["batch_sizes"]
-    deep_d = FlatForest(*(t.to(dev) for t in deep))
+    deep_d = GemmForest(*(t.to(dev) for t in deep_gf))
     for i in range(2):
-        pre = apply_u8_lut(scenes_d[i], luts_d[i])
-        st = hierarchical_stack_fused(pre.float(), cfg, device=dev)
-        want = forest_predict(deep_d, st.reshape(-1, 19), 12).reshape(
+        want = turbo.classify_scenes_turbo(
+            scenes[i:i + 1], luts[i:i + 1], deep_d, cfg,
+            stretch_params=params[i:i + 1], stretch_hists=hists[i:i + 1],
+            device=dev)[0].cpu().numpy()
+        st = turbo.hierarchical_stack_turbo_cm(scenes_d[i], luts_d[i], cfg,
+                                               device=dev)
+        walked = walk_labels(deep_fields, st.reshape(19, -1).T).reshape(
             HEIGHT, WIDTH).to(torch.uint8).cpu().numpy()
-        check(np.array_equal(fb[i], want) and len(np.unique(want)) > 1,
-              f"fallback scene {i} equals hierarchical_stack_fused + "
-              f"forest_predict on the card")
-    print(f"serving [fallback]: {leaves} leaves, 2 scenes unpadded "
-          f"({fb_sizes}) in {fb_s:.3f} s, bit-equal to the direct route",
-          flush=True)
-    out["fallback_s_2_scenes"] = fb_s
+        check(np.array_equal(fb[i], want) and np.array_equal(fb[i], walked)
+              and len(np.unique(want)) > 1,
+              f"past the cap, scene {i} equals its direct program at B = 1 "
+              f"and the plain walk over its stack on the card")
+    print(f"serving [past the cap]: {leaves} leaves, 2 scenes ({fb_sizes}) "
+          f"in {fb_s:.3f} s, bit-equal to the direct program and the "
+          f"plain walk", flush=True)
+    out["past_cap_s_2_scenes"] = fb_s
 
     # ---- 19h. launches of one supervised and one rule batch
     for m in ("random_forest", "rule_based"):
@@ -2501,13 +2600,15 @@ def serving_phases(dev, cfg, scenes, flat_forest, depth, gf, stack0, smi,
                   if k not in ("lut_hist", "forest_labels")),
           f"a supervised batch launches lut_hist and forest_labels once: "
           f"{rf}")
-    check(launches["random_forest, fallback"]["forest_labels"] == 0
+    deep_rf = launches["random_forest, past the cap"]
+    check(deep_rf["lut_hist"] == 1 and deep_rf["forest_labels"] == 1
           and launches["rule_based, rerouted"]["cc_labels"] > 0,
-          f"the fallback walks the trees without the forest kernel, and the "
-          f"reroute labels components with cc_labels: {launches}")
+          f"past the cap a 2-scene batch launches lut_hist and forest_labels "
+          f"once each, and the reroute labels components with cc_labels: "
+          f"{launches}")
     print(f"serving: launches of one {BATCH}-scene batch (KMeans: {BATCH} "
           f"single-scene programs), of the rerouted noise scene and of 2 "
-          f"scenes through the fallback: {launches}", flush=True)
+          f"scenes with the forest past the cap: {launches}", flush=True)
 
     # ---- 19i. HTTP: healthz, npy and GeoTIFF round trips, metrics
     httpd = make_server(eng, "127.0.0.1", 0)
@@ -2888,16 +2989,15 @@ TOOLS_REPS = 3                     # wall times: median of 3 after a warm-up
 SERVE_START_S = 300                # the server's start, its build and warm-up
 # each batch route's kernels and how often it must launch each; every
 # other kernel, never: the turbo branch launches both of its kernels once
-# a sub-batch, the streamed branch each stage kernel and the forest once a
-# scene (16-bit DNs: the calibrate-stretch route), and past the leaf cap
-# the uint8 scenes take the host LUT and the trees are walked without
-# the forest kernel
+# a sub-batch (a forest past the leaf cap too), the streamed branch each
+# stage kernel and the forest once a scene (16-bit DNs: the
+# calibrate-stretch route)
 TOOLS_LAUNCHES = {
     "batch_turbo": {"lut_hist": 2, "forest_labels": 2},
     "batch_streamed": {"fused_calibrate_stretch": 2,
                        "fused_spectral_indices": 2, "glcm_grid": 2,
                        "forest_labels": 2},
-    "batch_past_cap": {"fused_spectral_indices": 2, "glcm_grid": 2},
+    "batch_past_cap": {"lut_hist": 1, "forest_labels": 1},
 }
 
 
@@ -2931,8 +3031,7 @@ def tools_cli_phase(dev, cfg, scenes, flat_forest, depth, gf, stack0, smi,
         CalibrationConfig, ForestConfig)
     from rs_image_segmentation_tpu_torch.io.tiff import read_tiff, write_tiff
     from rs_image_segmentation_tpu_torch.models.forest import (
-        FlatForest, GemmForest, _gemm_for, flat_forest_from_numpy,
-        forest_predict)
+        GemmForest, _gemm_for, flat_forest_from_numpy)
     from rs_image_segmentation_tpu_torch.models.serialize import (
         save_flat_forest)
     from rs_image_segmentation_tpu_torch.ops.kernels import (forest_labels,
@@ -2944,7 +3043,7 @@ def tools_cli_phase(dev, cfg, scenes, flat_forest, depth, gf, stack0, smi,
     from rs_image_segmentation_tpu_torch.pipeline.features import (
         hierarchical_stack_fused)
     from rs_image_segmentation_tpu_torch.pipeline.preprocess import (
-        build_stretch_stats, preprocess_bands)
+        build_stretch_lut, build_stretch_stats, preprocess_bands)
     from rs_image_segmentation_tpu_torch.serving import client
     from rs_image_segmentation_tpu_torch.tools import (batch, sampling,
                                                        supervised)
@@ -2953,6 +3052,7 @@ def tools_cli_phase(dev, cfg, scenes, flat_forest, depth, gf, stack0, smi,
     from rs_image_segmentation_tpu_torch.utils import guards, traceview
     from rs_image_segmentation_tpu_torch.utils.timing import (StageTimer,
                                                               device_trace)
+    from tests.forest_walk_ref import walk_labels
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_tools_")
     cal = CalibrationConfig()
@@ -2978,12 +3078,12 @@ def tools_cli_phase(dev, cfg, scenes, flat_forest, depth, gf, stack0, smi,
     def band0(path):
         return read_tiff(path)[0][0]
 
-    def direct_b1(scene):
+    def direct_b1(scene, forest=gf):
         """The supervised program on one scene at B = 1 with the serving
         engine's host inputs (params and host histogram)."""
         lut, sp, hist = build_stretch_stats(scene, cal.gains, cal.biases)
         return turbo.classify_scenes_turbo(
-            scene[None], lut[None].astype(np.uint8), gf, cfg,
+            scene[None], lut[None].astype(np.uint8), forest, cfg,
             stretch_params=sp[None], stretch_hists=hist[None],
             device=dev)[0].cpu().numpy()
 
@@ -3050,8 +3150,10 @@ def tools_cli_phase(dev, cfg, scenes, flat_forest, depth, gf, stack0, smi,
                    for a, b in zip(res16, cpu16)]
         check(all(a >= 0.999 for a in agree16), f"batch streamed: card "
               f"against CPU {agree16}")
-        deep = flat_forest_from_numpy(deep_forest_fields(stack0))
-        check(_gemm_for(deep, 19) is None, "the deep forest is past the cap")
+        deep_fields = deep_forest_fields(stack0)
+        deep = flat_forest_from_numpy(deep_fields)
+        deep_gf = GemmForest(*(t.to(dev) for t in _gemm_for(deep, 19)))
+        check(deep_gf.path.is_sparse, "the deep forest is past the cap")
 
         def batch_past_cap():
             return batch.run_batch_workflow(paths[:2], deep, 12, at("deep"),
@@ -3059,16 +3161,18 @@ def tools_cli_phase(dev, cfg, scenes, flat_forest, depth, gf, stack0, smi,
 
         res_deep = run_counted("batch_past_cap", batch_past_cap)
         want_launches("batch_past_cap")
-        deep_d = FlatForest(*(t.to(dev) for t in deep))
         for i in range(2):
-            pre = preprocess_bands(ten[i], cal.gains, cal.biases, device=dev)
-            st = hierarchical_stack_fused(pre.float(), cfg, device=dev)
-            want = forest_predict(deep_d, st.reshape(-1, 19), 12).reshape(
+            want = direct_b1(ten[i], deep_gf)
+            lut = build_stretch_lut(ten[i], cal.gains, cal.biases)
+            st = turbo.hierarchical_stack_turbo_cm(
+                ten[i], lut.astype(np.uint8), cfg, device=dev)
+            walked = walk_labels(deep_fields, st.reshape(19, -1).T).reshape(
                 HEIGHT, WIDTH).cpu().numpy().astype(np.uint8)
             got = band0(res_deep[i]["class_map"])
-            check(np.array_equal(got, want) and len(np.unique(want)) > 1,
-                  f"past the cap, scene {i}: equal to "
-                  f"hierarchical_stack_fused + forest_predict on the card")
+            check(np.array_equal(got, want) and np.array_equal(got, walked)
+                  and len(np.unique(want)) > 1,
+                  f"past the cap, scene {i}: equal to its direct program at "
+                  f"B = 1 and to the plain walk over its stack on the card")
         print(f"tools [batch streamed]: 2 16-bit scenes, launches "
               f"{ {k: n for k, n in launches['batch_streamed'].items() if n} }"
               f", card against CPU {agree16}; past the cap (20 480 leaves) "
@@ -4203,6 +4307,8 @@ def main() -> int:
             "bound_by": by, "library_ms": lib, "library_note": lib_note,
             **extra})
 
+    rows[1]["deep_forest"] = deep_forest_phase(
+        dev, cfg, scenes_d, luts_d, params_d, hists_d, stack0, flush)
     rows += rule_phases(dev, cfg, scenes, luts, params, hists, scenes_d,
                         luts_d, params_d, hists_d, rows[0])
     rows.append(single_scene_phases(dev, cfg, scenes, luts, scenes_d,

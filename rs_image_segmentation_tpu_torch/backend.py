@@ -37,10 +37,12 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 def as_tensor(x, device: torch.device,
               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``x`` (a tensor, an array or a sequence) as a contiguous tensor on
-    ``device``, cast to ``dtype`` when one is given."""
+    ``device``, cast to ``dtype`` when one is given (a sparse tensor stays
+    sparse: it has no strides to make contiguous)."""
     t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(x))
-    return t.to(device=device, dtype=dtype).contiguous()
+    t = t.to(device=device, dtype=dtype)
+    return t if t.is_sparse else t.contiguous()
 
 
 def host_numpy(tree):

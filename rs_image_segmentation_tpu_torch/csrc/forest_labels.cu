@@ -36,6 +36,11 @@
 //     together, so four independent load chains overlap.
 //   * 8-byte records {feature | kids << 10, threshold bits}: the children
 //     of a record are the adjacent slots kids (x <= thr) and kids + 1.
+//     kids has 22 bits, so a packing holds fewer than 4 194 304 records
+//     and leaf rows; pack_forest refuses more (the source's forest trained
+//     on an ROI raster's 20 000 pixels, some 20 500 leaves at depth 24,
+//     packs 380 220 records). A group's depth is only a loop bound: no
+//     depth limit applies.
 //     After the group's last step the slot is a row of the leaf table,
 //     which holds each leaf's distribution in f64 (a padded leaf twice),
 //     class major: lanes that reach different leaves read one class at a

@@ -6,10 +6,12 @@ subsampling), so one seed gives the same trees in both packages. A trained
 ``FlatForest`` compiles to a ``GemmForest``: a (F, M) one-hot feature
 selector, (M,) thresholds, a (M, L) signed path matrix, (L,) path lengths
 and a (L, C) leaf distribution table. Inference over channel-major
-features is ``ops.kernels.forest_labels``; ``forest_predict`` takes it for
-(N, F) rows within ``GEMM_MAX_LEAVES`` (on a CUDA tensor the kernel, on a
-CPU one its plain version), and past the cap a level-synchronous tree walk
-in plain torch, as the JAX package does.
+features is ``ops.kernels.forest_labels``, for a forest of any size;
+``forest_predict`` takes it for (N, F) rows (on a CUDA tensor the kernel,
+on a CPU one its plain version). Past ``GEMM_MAX_LEAVES`` the path matrix
+is kept as a sparse tensor of its leaf paths, which the kernel's packing
+and the plain version read; the JAX package walks such forests level by
+level instead.
 
 The JAX package stores ``selector`` and ``path`` as bf16; their values are
 exactly 0/+-1, so here they are f32 with the same values.
@@ -55,9 +57,15 @@ class GemmForest(NamedTuple):
 
 
 def _tensors(cls, fields: dict, dtypes: dict, device):
-    return cls(**{k: torch.as_tensor(np.asarray(fields[k]).astype(dt),
-                                     device=device)
-                  for k, dt in dtypes.items()})
+    """``cls`` of ``fields`` cast to ``dtypes`` on ``device``; a field that
+    is already a tensor (a sparse path) is moved and cast as it is."""
+    def one(v, dt):
+        if isinstance(v, torch.Tensor):
+            return v.to(device=device,
+                        dtype=torch.from_numpy(np.zeros(0, dt)).dtype)
+        return torch.as_tensor(np.asarray(v).astype(dt), device=device)
+
+    return cls(**{k: one(fields[k], dt) for k, dt in dtypes.items()})
 
 
 _GEMM_DTYPES = {"selector": np.float32, "thresholds": np.float32,
@@ -86,7 +94,12 @@ def forest_to_gemm(forest: FlatForest, n_features: int) -> GemmForest:
     """Compile a FlatForest into its GEMM form (host-side), on the CPU.
     Trees are walked in order and each tree depth first, left before
     right, so internal-node columns are numbered in preorder and leaves
-    are grouped by tree."""
+    are grouped by tree.
+
+    The walk follows the child links, one visit a node; a leaf's path is
+    its ancestors' columns, about depth entries a leaf. Within
+    ``GEMM_MAX_LEAVES`` the path is a dense (M, L) matrix; past it, a
+    sparse COO tensor of those entries, so no (M, L) array is built."""
     feature = forest.feature.cpu().numpy()
     threshold = forest.threshold.cpu().numpy()
     left = forest.left.cpu().numpy()
@@ -96,49 +109,54 @@ def forest_to_gemm(forest: FlatForest, n_features: int) -> GemmForest:
 
     sel_rows = []      # feature index per internal node
     thr_vals = []
-    paths = []         # per leaf: list of (node_col, sign)
-    leaf_dists = []
-
+    leaf_nodes = []    # (tree, node) per leaf
+    ent_col, ent_leaf, ent_sign = [], [], []    # the path's nonzeros
+    path_len = []
     for t in range(t_count):
-        node_col: dict = {}
-
-        def walk(node, trail):
+        stack = [(0, ())]          # (node, ((column, sign), ...) above it)
+        while stack:
+            node, trail = stack.pop()
             if left[t, node] == node:  # leaf (self-loop)
-                paths.append(list(trail))
-                leaf_dists.append(proba[t, node])
-                return
-            if node not in node_col:
-                node_col[node] = len(sel_rows)
-                sel_rows.append(feature[t, node])
-                thr_vals.append(threshold[t, node])
-            col = node_col[node]
-            walk(left[t, node], trail + [(col, 1.0)])
-            walk(right[t, node], trail + [(col, -1.0)])
+                leaf = len(leaf_nodes)
+                leaf_nodes.append((t, node))
+                path_len.append(len(trail))
+                for col, sign in trail:
+                    ent_col.append(col)
+                    ent_leaf.append(leaf)
+                    ent_sign.append(sign)
+                continue
+            col = len(sel_rows)
+            sel_rows.append(feature[t, node])
+            thr_vals.append(threshold[t, node])
+            # popped left first: the left subtree is numbered before the
+            # right, as a recursive preorder walk numbers it
+            stack.append((right[t, node], trail + ((col, -1.0),)))
+            stack.append((left[t, node], trail + ((col, 1.0),)))
 
-        old = sys.getrecursionlimit()
-        sys.setrecursionlimit(100000)
-        try:
-            walk(0, [])
-        finally:
-            sys.setrecursionlimit(old)
-
-    m = len(sel_rows)
-    n_leaves = len(paths)
-    selector = np.zeros((n_features, max(m, 1)), np.float32)
-    for col, f in enumerate(sel_rows):
-        selector[f, col] = 1.0
-    thresholds = (np.asarray(thr_vals, np.float32) if m
+    m = max(len(sel_rows), 1)
+    n_leaves = len(leaf_nodes)
+    selector = np.zeros((n_features, m), np.float32)
+    selector[np.asarray(sel_rows, np.int64), np.arange(len(sel_rows))] = 1.0
+    thresholds = (np.asarray(thr_vals, np.float32) if sel_rows
                   else np.zeros(1, np.float32))
-    path = np.zeros((max(m, 1), n_leaves), np.float32)
-    path_len = np.zeros(n_leaves, np.float32)
-    for li, trail in enumerate(paths):
-        path_len[li] = len(trail)
-        for col, sign in trail:
-            path[col, li] = sign
+    ent_col = np.asarray(ent_col, np.int64)
+    ent_leaf = np.asarray(ent_leaf, np.int64)
+    ent_sign = np.asarray(ent_sign, np.float32)
+    lt, ln = np.asarray(leaf_nodes, np.int64).reshape(-1, 2).T
+    if n_leaves <= GEMM_MAX_LEAVES:
+        path = np.zeros((m, n_leaves), np.float32)
+        path[ent_col, ent_leaf] = ent_sign
+    else:
+        order = np.lexsort((ent_leaf, ent_col))     # coalesced: row major
+        with torch.sparse.check_sparse_tensor_invariants():
+            path = torch.sparse_coo_tensor(
+                torch.from_numpy(np.stack([ent_col[order], ent_leaf[order]])),
+                torch.from_numpy(ent_sign[order]), (m, n_leaves),
+                is_coalesced=True)
     return gemm_forest_from_numpy(
         {"selector": selector, "thresholds": thresholds, "path": path,
-         "path_len": path_len, "leaf_dist": np.stack(leaf_dists),
-         "inv_trees": np.float32(1.0 / t_count),
+         "path_len": np.asarray(path_len, np.float32),
+         "leaf_dist": proba[lt, ln], "inv_trees": np.float32(1.0 / t_count),
          "classes": forest.classes.cpu().numpy()})
 
 
@@ -190,31 +208,6 @@ def forest_from_sklearn(clf) -> "tuple[FlatForest, int]":
     return _pack_trees(trees, np.asarray(clf.classes_).copy(), max_depth)
 
 
-def _traversal_proba(forest: FlatForest, x: torch.Tensor, max_depth: int,
-                     chunk: int = 65536) -> torch.Tensor:
-    """Mean per-tree leaf distribution of each row of (N, F) ``x``, on its
-    device: ``max_depth`` rounds, each moving every (pixel, tree) pair one
-    level down by gathers and a select (leaves loop on themselves)."""
-    dev = x.device
-    x = x.to(torch.float32)
-    feature, threshold, left, right, proba = (
-        t.to(dev) for t in (forest.feature.long(), forest.threshold,
-                            forest.left.long(), forest.right.long(),
-                            forest.leaf_proba))
-    trees = torch.arange(feature.shape[0], device=dev)
-    out = torch.empty((x.shape[0], proba.shape[-1]), device=dev)
-    for s in range(0, x.shape[0], chunk):
-        xb = x[s:s + chunk]
-        idx = torch.zeros((xb.shape[0], trees.numel()), dtype=torch.int64,
-                          device=dev)
-        for _ in range(max_depth):
-            xv = torch.gather(xb, 1, feature[trees, idx])
-            idx = torch.where(xv <= threshold[trees, idx], left[trees, idx],
-                              right[trees, idx])
-        out[s:s + chunk] = torch.mean(proba[trees, idx], dim=1)
-    return out
-
-
 def gemm_forest_proba(gf: GemmForest, x: torch.Tensor,
                       chunk: int = 8192) -> torch.Tensor:
     """Mean forest proba of (N, F) rows: ``ops.kernels.gemm_totals_cm``
@@ -252,19 +245,17 @@ def n_leaves(forest: FlatForest) -> int:
     return count
 
 
-def _gemm_for(forest: FlatForest, n_features: int) -> Optional[GemmForest]:
-    """The cached GemmForest of ``forest``, or None when its leaf count
-    exceeds GEMM_MAX_LEAVES (counted first: past the cap the (M, L) path
-    matrix, a GiB or more, is never built)."""
+def _gemm_for(forest: FlatForest, n_features: int) -> GemmForest:
+    """The cached GemmForest of ``forest``, of any size: its path is dense
+    within GEMM_MAX_LEAVES and sparse past it (:func:`forest_to_gemm`)."""
     key = (id(forest.feature), n_features)
-    if key in _GEMM_CACHE:
-        return _GEMM_CACHE[key][1]
-    gf = (forest_to_gemm(forest, n_features)
-          if n_leaves(forest) <= GEMM_MAX_LEAVES else None)
-    # keep a strong reference to the keyed buffer: id() of a collected
-    # tensor can be recycled, which would silently serve the wrong forest
-    _GEMM_CACHE[key] = (forest.feature, gf)
-    return gf
+    if key not in _GEMM_CACHE:
+        # keep a strong reference to the keyed buffer: id() of a collected
+        # tensor can be recycled, which would silently serve the wrong
+        # forest
+        _GEMM_CACHE[key] = (forest.feature,
+                            forest_to_gemm(forest, n_features))
+    return _GEMM_CACHE[key][1]
 
 
 def _gemm_chunk(n_leaves: int) -> int:
@@ -272,28 +263,57 @@ def _gemm_chunk(n_leaves: int) -> int:
     return max(512, min(65536, (64 << 20) // max(4 * n_leaves, 1)))
 
 
+def path_entries(gf: GemmForest
+                 ) -> "tuple[np.ndarray, np.ndarray, np.ndarray]":
+    """The nonzeros of ``gf.path`` (dense within GEMM_MAX_LEAVES, sparse
+    past it) as ``(leaf, node, sign)`` host arrays ordered by leaf, then
+    node: each leaf's path root first, since node columns are numbered in
+    preorder."""
+    path = gf.path.cpu()
+    path = (path if path.is_sparse else path.to_sparse()).coalesce()
+    node, leaf = path.indices().numpy()
+    sign = path.values().numpy()
+    keep = sign != 0
+    node, leaf, sign = node[keep], leaf[keep], sign[keep]
+    order = np.lexsort((node, leaf))
+    return leaf[order], node[order], sign[order]
+
+
+def dense_path(gf: GemmForest) -> torch.Tensor:
+    """``gf.path`` as the dense (M, L) matrix, for the consumers that
+    multiply or slice it whole; raises ValueError for a forest past
+    GEMM_MAX_LEAVES, whose path is kept sparse."""
+    if gf.path.is_sparse:
+        raise ValueError(
+            f"a forest of {gf.path.shape[1]} leaves is past GEMM_MAX_LEAVES "
+            f"({GEMM_MAX_LEAVES}): its path is sparse, and the dense (M, L) "
+            "form would take "
+            f"{4 * gf.path.shape[0] * gf.path.shape[1] / 1e9:.1f} GB")
+    return gf.path
+
+
 def forest_predict_proba(forest: FlatForest, x: torch.Tensor,
                          max_depth: int, chunk: int = 65536) -> torch.Tensor:
-    """Mean forest proba of (N, F) rows on their device: the GEMM form
-    within ``GEMM_MAX_LEAVES``, else the level traversal."""
+    """Mean forest proba of (N, F) rows on their device, from the GEMM
+    form (its path sparse past ``GEMM_MAX_LEAVES``). ``max_depth`` and
+    ``chunk`` are unused: they keep the JAX package's signature, which
+    the cross-package tests call both packages with."""
     gf = _gemm_for(forest, x.shape[1])
-    if gf is not None:
-        return gemm_forest_proba(gf, x, _gemm_chunk(gf.path.shape[1]))
-    return _traversal_proba(forest, x, max_depth, chunk)
+    return gemm_forest_proba(gf, x, _gemm_chunk(gf.path.shape[1]))
 
 
 def forest_predict(forest: FlatForest, x: torch.Tensor, max_depth: int,
                    chunk: int = 65536) -> torch.Tensor:
     """sklearn's ``predict`` of (N, F) rows on their device: the class of
-    the largest mean proba, ties to the lowest index. Within
-    ``GEMM_MAX_LEAVES`` the labels come from ``ops.kernels.forest_labels``
-    (:func:`gemm_forest_predict`), past it from the level traversal."""
+    the largest mean proba, ties to the lowest index, from
+    ``ops.kernels.forest_labels`` (:func:`gemm_forest_predict`) for a
+    forest of any size. ``max_depth`` and ``chunk`` are unused: they keep
+    the JAX package's signature, with which ``pipeline.classify``,
+    ``parallel.sharded``, ``tools.batch``, ``tools.supervised`` and the
+    cross-package tests still call it."""
     classes = forest.classes.to(x.device)
     gf = _gemm_for(forest, x.shape[1])
-    if gf is not None:
-        return gemm_forest_predict(gf, x).to(classes.dtype)
-    proba = _traversal_proba(forest, x, max_depth, chunk)
-    return classes[torch.argmax(proba, dim=1)]
+    return gemm_forest_predict(gf, x).to(classes.dtype)
 
 
 _PLAN_CACHE: dict = {}
@@ -311,13 +331,12 @@ def forest_tree_plan(gf: GemmForest):
     (fewer than 256 internal nodes). The JAX package sizes its
     TPU forest kernel by this plan; here it describes the forest's scale.
     Cached by buffer identity like ``_gemm_for``."""
-    if gf is None:
-        return None
+    path = dense_path(gf)
     min_block, max_groups = _PLAN_MIN_BLOCK, _PLAN_MAX_GROUPS
     key = id(gf.path)
     if key in _PLAN_CACHE:
         return _PLAN_CACHE[key][1]
-    path = gf.path.cpu().numpy()
+    path = path.cpu().numpy()
     m, l = path.shape
     plan = None
     if m >= 2 * min_block and float(gf.path_len.min()) >= 1:

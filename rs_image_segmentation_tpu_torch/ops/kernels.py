@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ..backend import as_tensor
+from ..utils.timing import span
 from . import _build
 from .indices import spectral_indices
 from .normalize import minmax_stretch_f32
@@ -290,11 +291,14 @@ def gemm_leaf_sums_cm(gf, x_cm: torch.Tensor, chunk: int = _CHUNK,
     operands), the leaf-distribution sum in f64, exact for these
     per-tree distributions in any order. With ``scale`` (f32), each
     block's sums are rounded once to f32 and scaled as they come -> (C, N)
-    f32, so no f64 buffer of the whole output is held."""
+    f32, so no f64 buffer of the whole output is held. The blocks are cut
+    to keep each (L, chunk) product near 64 MB; ``path`` may be dense or
+    sparse (past ``models.forest.GEMM_MAX_LEAVES``)."""
     dev = x_cm.device
     sel_t = gf.selector.to(dev).T                       # (M, F)
     thr = gf.thresholds.to(dev)[:, None]
     path_t = gf.path.to(dev).T                          # (L, M)
+    chunk = min(chunk, max(512, (64 << 20) // (4 * path_t.shape[0])))
     plen = gf.path_len.to(dev)[:, None]
     dist_t = gf.leaf_dist.to(dev, torch.float64).T      # (C, L)
     out = torch.empty((dist_t.shape[0], x_cm.shape[1]), device=dev,
@@ -346,15 +350,18 @@ def _tree_links(gf) -> Tuple[np.ndarray, list]:
     one entry per tree, in order of its first leaf; a root ``< 0`` is a
     one-leaf tree.
 
-    The links come from the leaves' paths, each read root first (ascending
-    node column: the columns are numbered in preorder). Raises when a
-    selector column on a leaf path is not one-hot, a path_len is not its
-    path's length, or the paths do not form binary trees."""
+    The links come from the leaves' paths
+    (``models.forest.path_entries``), each read root first: each entry
+    links to the next of its leaf's path, the last to the leaf.
+    O(entries), about L x depth. Raises when a selector column on a leaf
+    path is not one-hot, a path_len is not its path's length, or the paths
+    do not form binary trees."""
+    from ..models.forest import path_entries    # models.forest imports us
+
     sel = gf.selector.cpu().numpy()
-    path = gf.path.cpu().numpy()
     path_len = gf.path_len.cpu().numpy()
-    leaf, node = np.nonzero(path.T)         # row-major: by leaf, then node
-    m, n_leaves = path.shape
+    leaf, node, sign = path_entries(gf)
+    m, n_leaves = gf.path.shape
     counts = np.bincount(leaf, minlength=n_leaves)
     _require(np.array_equal(counts.astype(np.float32), path_len),
              "path_len must equal each leaf's path length")
@@ -363,24 +370,49 @@ def _tree_links(gf) -> Tuple[np.ndarray, list]:
     _require(bool(np.isin(onehot, (0.0, 1.0)).all()
                   and (onehot.sum(axis=0) == 1).all()),
              "selector columns on a leaf path must be one-hot")
-    child = np.full((m, 2), _UNSET, np.int64)   # side 1: sign -1 (x > thr)
-    roots: Dict[int, None] = {}                  # ordered set
     starts = np.concatenate([[0], np.cumsum(counts)])
-    for lf in range(n_leaves):
-        trail = node[starts[lf]:starts[lf + 1]]
-        roots[int(trail[0]) if trail.size else ~lf] = None
-        sides = (path[trail, lf] < 0).astype(np.int64)
-        for nd, side, to in zip(trail, sides, [*trail[1:], ~lf]):
-            _require(child[nd, side] in (_UNSET, to),
-                     "the leaf paths do not form binary trees")
-            child[nd, side] = to
+    to = np.empty_like(node)
+    to[:-1] = node[1:]
+    has_path = counts > 0
+    to[starts[1:][has_path] - 1] = ~np.flatnonzero(has_path)
+    # every (node, side) must link to one target
+    slot = node * 2 + (sign < 0)            # side 1: sign -1 (x > thr)
+    order = np.argsort(slot, kind="stable")
+    slot, to = slot[order], to[order]
+    first = np.ones(slot.size, bool)
+    first[1:] = slot[1:] != slot[:-1]
+    _require(bool(np.array_equal(to, np.repeat(
+        to[first], np.diff(np.append(np.flatnonzero(first), slot.size))))),
+             "the leaf paths do not form binary trees")
+    child = np.full((m, 2), _UNSET, np.int64)
+    child.reshape(-1)[slot[first]] = to[first]
+    head = np.where(has_path, node[np.minimum(starts[:-1], node.size - 1)]
+                    if node.size else 0, ~np.arange(n_leaves))
+    _, at = np.unique(head, return_index=True)
+    roots = [int(r) for r in head[np.sort(at)]]     # in first-leaf order
     inner = child[used]
     targets = inner[inner >= 0]
     _require(bool((inner != _UNSET).all())
              and np.unique(targets).size == targets.size
-             and not np.isin(list(roots), targets).any(),
+             and not np.isin(roots, targets).any(),
              "the leaf paths do not form binary trees")
-    return child, list(roots)
+    return child, roots
+
+
+def _heights(child: np.ndarray, roots: list) -> Dict[int, int]:
+    """Levels below each node reachable from ``roots`` (a node's own
+    decision counts one; a leaf has none), by an explicit stack, so no
+    depth limit applies."""
+    height: Dict[int, int] = {}
+    stack = [(r, False) for r in roots if r >= 0]
+    while stack:
+        ref, closed = stack.pop()
+        if closed:
+            height[ref] = 1 + max(height.get(int(c), 0) for c in child[ref])
+            continue
+        stack.append((ref, True))
+        stack.extend((int(c), False) for c in child[ref] if c >= 0)
+    return height
 
 
 def pack_forest(gf) -> Dict[str, np.ndarray]:
@@ -423,23 +455,14 @@ def pack_forest(gf) -> Dict[str, np.ndarray]:
     n_leaves = gf.path.shape[1]
     zero_leaf = ~n_leaves                # the filler trees' leaf
 
-    depth_of: Dict[int, int] = {}
-
-    def depth(ref: int) -> int:
-        if ref < 0:
-            return 0
-        if ref not in depth_of:
-            depth_of[ref] = 1 + max(depth(int(child[ref, 0])),
-                                    depth(int(child[ref, 1])))
-        return depth_of[ref]
-
+    height = _heights(child, roots)
     trees = roots + [zero_leaf] * (-len(roots) % FOREST_GROUP)
     records: list = []        # [word0, threshold bits, GemmForest column]
     rows: list = []           # leaf of each row of the leaf table
     slot_roots, depths = [], []
     for g in range(0, len(trees), FOREST_GROUP):
         group = trees[g:g + FOREST_GROUP]
-        d = max(depth(r) for r in group)
+        d = max(height.get(r, 0) for r in group)
         depths.append(d)
         # (slots, ref, steps left): every slot in `slots` gets one content
         queue = []
@@ -493,52 +516,82 @@ _PACKED_LOCK = threading.Lock()
 
 
 def _packed_on(gf, device: torch.device) -> Tuple[Dict[str, torch.Tensor],
-                                                  float]:
+                                                  float, Dict[str, int]]:
     """The arrays of ``pack_forest(gf)`` that the kernel reads, on
-    ``device``, and ``inv_trees`` as a host float, cached by buffer
-    identity."""
+    ``device``, ``inv_trees`` as a host float and the packing's host facts
+    (:func:`_pack_facts`), cached by buffer identity. The packing is
+    marked ``forest.pack``, with counts ``leaves`` and ``records``."""
     key = (id(gf.path), str(device))
     hit = _PACKED.get(key)
     if hit is None:
         with _PACKED_LOCK:      # a dispatch thread and a warm-up may race
             hit = _PACKED.get(key)
             if hit is None:
-                packed = pack_forest(gf)
+                with span("forest.pack") as rec:
+                    packed = pack_forest(gf)
+                    if rec is not None:
+                        rec.counts.update(
+                            leaves=int(gf.path.shape[1]),
+                            records=int(packed["records"].shape[0]))
+                facts = _pack_facts(packed)
                 packed = {k: torch.from_numpy(packed[k]).to(device)
                           for k in _KERNEL_FOREST}
                 # a strong reference to the keyed buffer: a recycled id()
                 # of a collected tensor would otherwise serve the wrong
                 # forest
-                hit = _PACKED[key] = (gf.path, packed, float(gf.inv_trees))
-    return hit[1], hit[2]
+                hit = _PACKED[key] = (gf.path, packed, float(gf.inv_trees),
+                                      facts)
+    return hit[1], hit[2], hit[3]
 
 
-def _instance(packed: Dict[str, torch.Tensor]) -> str:
-    nbytes = sum(packed[k].numel() * packed[k].element_size()
-                 for k in ("records", "leaf_table"))
-    return "shared" if nbytes <= FOREST_SHARED_BYTES else "global"
+def _pack_facts(packed: Dict[str, np.ndarray]) -> Dict[str, int]:
+    """``table_bytes`` (records and leaf table), ``walk_depth`` (steps a
+    pixel takes: ``FOREST_GROUP`` walks of each group's depth) and
+    ``global_instance`` (1 when the tables pass ``FOREST_SHARED_BYTES``)
+    of a packing."""
+    nbytes = packed["records"].nbytes + packed["leaf_table"].nbytes
+    return {"table_bytes": int(nbytes),
+            "walk_depth": FOREST_GROUP * int(packed["depths"].sum()),
+            "global_instance": int(nbytes > FOREST_SHARED_BYTES)}
 
 
 def forest_instance(gf) -> str:
     """Which instance of the forest kernel ``gf`` takes: ``"shared"`` when
     its records and leaf table take at most ``FOREST_SHARED_BYTES`` (they
     are then staged in shared memory), else ``"global"``."""
-    return _instance(_packed_on(gf, torch.device("cpu"))[0])
+    facts = _packed_on(gf, torch.device("cpu"))[2]
+    return "global" if facts["global_instance"] else "shared"
 
 
 def forest_labels(gf, x_cm: torch.Tensor) -> torch.Tensor:
     """GemmForest labels over channel-major features: (F, N) or (B, F, N)
     f32 -> (N,) or (B, N) int32, bit-equal to :func:`gemm_labels_cm`
-    (first-index argmax on ties)."""
+    (first-index argmax on ties), for a forest of any size. Marked
+    ``forest.labels``, with counts ``pixels``, ``walk_steps`` (the
+    pixel-steps of the fixed-depth walks), ``table_bytes`` and
+    ``global_instance`` (:func:`_pack_facts`)."""
     _require(x_cm.dtype == torch.float32 and x_cm.dim() in (2, 3),
              "x_cm must be a (F, N) or (B, F, N) f32 tensor")
     n_features = gf.selector.shape[0]
     _require(x_cm.shape[-2] == n_features,
              f"x_cm has {x_cm.shape[-2]} features, the forest {n_features}")
-    if x_cm.device.type == "cpu":
-        return gemm_labels_cm(gf, x_cm)
+    with span("forest.labels") as rec:
+        if rec is not None:
+            facts = _packed_on(gf, x_cm.device)[2]
+            pixels = x_cm.numel() // n_features
+            rec.counts.update(pixels=pixels,
+                              walk_steps=pixels * facts["walk_depth"],
+                              table_bytes=facts["table_bytes"],
+                              global_instance=facts["global_instance"])
+        if x_cm.device.type == "cpu":
+            return gemm_labels_cm(gf, x_cm)
+        return _forest_labels_launch(gf, x_cm)
+
+
+def _forest_labels_launch(gf, x_cm: torch.Tensor) -> torch.Tensor:
     _require_cuda(x_cm)
-    fp, inv_trees = _packed_on(gf, x_cm.device)
+    n_features = gf.selector.shape[0]
+    fp, inv_trees, facts = _packed_on(gf, x_cm.device)
     n_cols, n_rows = fp["leaf_table"].shape
     x3 = x_cm if x_cm.dim() == 3 else x_cm[None]
     batch, _, n = x3.shape
@@ -552,7 +605,7 @@ def forest_labels(gf, x_cm: torch.Tensor) -> torch.Tensor:
           fp["leaf_table"].data_ptr(), n_rows, fp["roots"].data_ptr(),
           fp["depths"].data_ptr(), fp["depths"].numel(), FOREST_GROUP,
           fp["classes"].data_ptr(), inv_trees, fp["classes"].numel(), n_cols,
-          n_features, n, batch, int(_instance(fp) == "shared"),
+          n_features, n, batch, 1 - facts["global_instance"],
           out.data_ptr(), _stream(x_cm.device))
     forest_labels.launches += 1
     return out if x_cm.dim() == 3 else out[0]

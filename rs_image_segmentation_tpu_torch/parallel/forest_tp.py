@@ -25,7 +25,7 @@ from typing import Optional
 import torch
 
 from ..backend import as_tensor
-from ..models.forest import GemmForest, _gemm_chunk
+from ..models.forest import GemmForest, _gemm_chunk, dense_path
 from ..ops.kernels import gemm_leaf_sums_cm
 from .collectives import axis_index, axis_size, psum
 from .mesh import block_bounds, data_sharding, mesh_device
@@ -41,13 +41,16 @@ def pad_gemm_leaves(gf: GemmForest, n_shards: int) -> GemmForest:
     """Pad the leaf axis to a multiple of ``n_shards``.
 
     Pad columns have an all-zero path and path_len = -1, so their vote sum
-    (0) never equals their path length: they can never fire."""
-    pad = (-gf.path.shape[1]) % n_shards
+    (0) never equals their path length: they can never fire. Slicing the
+    leaf axis takes the dense path: a forest past ``GEMM_MAX_LEAVES``
+    raises ValueError (``models.forest.dense_path``)."""
+    path = dense_path(gf)
+    pad = (-path.shape[1]) % n_shards
     if pad == 0:
         return gf
     pad_last = torch.nn.functional.pad
     return gf._replace(
-        path=pad_last(gf.path, (0, pad)),
+        path=pad_last(path, (0, pad)),
         path_len=pad_last(gf.path_len, (0, pad), value=-1.0),
         leaf_dist=pad_last(gf.leaf_dist, (0, 0, 0, pad)))
 

@@ -13,7 +13,7 @@ Counterpart of ``rs_image_segmentation_tpu.pipeline.classify``.
   ``models.kmeans``, labels + 1.
 * random_forest: ``models.forest.forest_predict`` over every pixel, whose
   labels come from the CUDA kernel ``ops.kernels.forest_labels`` on a CUDA
-  tensor within the leaf cap.
+  tensor, for a forest of any size.
 
 The stage-3 file driver, ``run_classification_stage``, reads the stage-2
 pickle (``io.artifacts``), runs one method on the device, and writes the

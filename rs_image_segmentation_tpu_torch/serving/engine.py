@@ -24,9 +24,9 @@ Design:
 * Per-(method, bucket, shape) programs are built on first use or ahead of
   time via :meth:`InferenceEngine.warmup` (which also builds the CUDA
   kernels and packs the forest onto the card).
-* Forests too large for the GEMM form (``models.forest.GEMM_MAX_LEAVES``)
-  fall back to the standard per-scene graph (``forest_predict`` over the
-  fused stack).
+* A forest of any size takes the batched supervised program: past
+  ``models.forest.GEMM_MAX_LEAVES`` its GEMM form keeps a sparse path,
+  and ``ops.kernels.forest_labels`` walks it as it walks any other.
 * The pending queue is bounded (``EngineConfig.max_pending``): beyond it
   ``submit`` fails fast with :class:`EngineSaturated` instead of letting
   host memory grow without bound under a wedged device.
@@ -57,10 +57,8 @@ import torch
 
 from ..backend import DeviceLike, as_tensor, resolve_device
 from ..core.config import CalibrationConfig, FeatureStageConfig
-from ..models.forest import FlatForest, GemmForest, _gemm_for, forest_predict
-from ..ops.kernels import apply_u8_lut
+from ..models.forest import FlatForest, GemmForest, _gemm_for
 from ..pipeline import large_scene, turbo
-from ..pipeline.features import hierarchical_stack_fused
 from ..pipeline.preprocess import build_stretch_stats
 from ..utils.log import get_logger
 from ..utils.timing import span
@@ -159,7 +157,9 @@ class InferenceEngine:
         A trained ``FlatForest`` (``models.forest``) and its max depth —
         e.g. from ``models.forest.fit_random_forest`` or
         ``models.serialize.load_flat_forest``. Only required for requests
-        with ``method="random_forest"``.
+        with ``method="random_forest"``. ``depth`` is accepted as the JAX
+        package's engine takes it (the CLI and the tests pass it); the
+        forest kernel reads each tree's depth from the forest itself.
     device:
         Where the programs run: CUDA unless the caller names another
         device (``"cpu"``); with no CUDA device and none named, raises.
@@ -185,7 +185,6 @@ class InferenceEngine:
             raise ValueError(f"kmeans needs n_clusters >= 2, "
                              f"got {n_clusters}")
         self._method = method
-        self._depth = depth
         self._cal = cal
         self._cfg = cfg
         self._ecfg = engine_cfg
@@ -198,8 +197,7 @@ class InferenceEngine:
         if forest is not None:
             self._forest = FlatForest(*(t.to(self._device) for t in forest))
             gf = _gemm_for(self._forest, n_features=19)
-            if gf is not None:
-                self._gf = GemmForest(*(t.to(self._device) for t in gf))
+            self._gf = GemmForest(*(t.to(self._device) for t in gf))
 
         self._lock = threading.Condition()
         # key = (method, scene.shape); value = FIFO of requests
@@ -369,7 +367,8 @@ class InferenceEngine:
                 "strict_shapes": (
                     [list(s) for s in self._ecfg.strict_shapes]
                     if self._ecfg.strict_shapes is not None else None),
-                "gemm_forest": self._gf is not None,
+                # a forest of any size takes the GEMM form
+                "gemm_forest": self._forest is not None,
             }
         if lat:
             st["latency_s"] = {
@@ -503,13 +502,7 @@ class InferenceEngine:
         with span("serve.batch"):
             method = method if method is not None else self._method
             n = len(scenes)
-            # bucket padding only pays off for the batched device programs;
-            # the traversal fallback (random_forest beyond the GEMM leaf cap)
-            # classifies per scene, so padded duplicates would each cost full
-            # price there
-            if method == "random_forest" and self._gf is None:
-                b = n
-            elif method == "kmeans" and self._ecfg.kmeans_shared_fit:
+            if method == "kmeans" and self._ecfg.kmeans_shared_fit:
                 # shared fit draws its subsample ACROSS the batch (stride
                 # scales with b), so padded duplicates would enter the fit —
                 # over-weighting the repeated scene and changing every output
@@ -547,9 +540,7 @@ class InferenceEngine:
             dev = self._device
             inputs = (as_tensor(batch, dev), as_tensor(luts, dev),
                       as_tensor(sps, dev), as_tensor(hists, dev))
-            if method == "random_forest" and self._gf is None:
-                maps = self._fallback_batch(inputs[0], inputs[1])
-            elif method == "kmeans" and self._ecfg.kmeans_warm_start:
+            if method == "kmeans" and self._ecfg.kmeans_warm_start:
                 # shared-fit warm start: seed this batch's Lloyd loop from the
                 # last converged centroids for this scene shape (tiny K x F
                 # host state; convergence-gated, so quality is self-healing)
@@ -672,18 +663,3 @@ class InferenceEngine:
                     bd, ld, cfg, stretch_params=sd, stretch_hists=hd,
                     return_overflow=True, device=dev)
         return run
-
-    def _fallback_batch(self, batch: torch.Tensor, luts: torch.Tensor
-                        ) -> torch.Tensor:
-        """Forests beyond the GEMM leaf cap: the standard fused stack +
-        level-by-level traversal predict, per scene."""
-        outs = []
-        for scene, lut in zip(batch, luts):
-            pre = apply_u8_lut(scene, lut)
-            stack = hierarchical_stack_fused(pre.to(torch.float32), self._cfg,
-                                             device=self._device)
-            pred = forest_predict(self._forest,
-                                  stack.reshape(-1, stack.shape[-1]),
-                                  self._depth)
-            outs.append(pred.reshape(stack.shape[:2]).to(torch.uint8))
-        return torch.stack(outs)

@@ -4,8 +4,8 @@ GeoTIFF + accuracy report per scene (BASELINE config #5).
 Counterpart of ``rs_image_segmentation_tpu.tools.batch``, with two
 branches:
 
-* turbo: uniform uint8 scenes and a forest within ``GEMM_MAX_LEAVES`` go
-  through ``pipeline.turbo.classify_scenes_turbo`` in sub-batches of 8,
+* turbo: uniform uint8 scenes and a forest of any size go through
+  ``pipeline.turbo.classify_scenes_turbo`` in sub-batches of 8,
   one launch of each of the CUDA kernels ``lut_hist`` and
   ``forest_labels`` per sub-batch. The host inputs are the exact stretch
   LUTs of ``pipeline.preprocess.build_stretch_lut``, as the JAX package
@@ -14,8 +14,7 @@ branches:
   passes them, give the same maps).
 * streamed: any other batch runs one scene at a time through
   ``preprocess_bands``, ``hierarchical_stack_fused`` and
-  ``models.forest.forest_predict``, which takes ``forest_labels`` within
-  the leaf cap and the level traversal past it.
+  ``models.forest.forest_predict``, which takes ``forest_labels``.
 
 Two departures from the JAX function:
 
@@ -23,10 +22,11 @@ Two departures from the JAX function:
   that it reuses the compiled TPU program. Eager PyTorch compiles nothing,
   and the stack is batch-invariant on the card, so the partial group runs
   at its real size.
-* The JAX streamed branch reads ``_gemm_for(forest).path`` and so raises
-  ``AttributeError`` for a forest past ``GEMM_MAX_LEAVES``, though its
-  comment sends such forests there; here ``forest_predict`` walks the
-  trees, as serving's fallback does.
+* The JAX function sends a forest past ``GEMM_MAX_LEAVES`` to its
+  streamed branch, which reads ``_gemm_for(forest).path`` and so raises
+  ``AttributeError``; here such a forest takes the turbo branch like any
+  other (its GEMM form keeps a sparse path, which the kernel's packing
+  reads).
 
 ``mesh`` (a ``parallel.mesh`` mesh, every rank calling with the same
 arguments): the scenes shard over its ``data`` axis. Each rank classifies

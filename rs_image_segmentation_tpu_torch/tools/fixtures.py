@@ -156,8 +156,8 @@ def deep_forest_fields(stack: np.ndarray, depth: int = 12, n_trees: int = 5,
                        n_classes: int = 4, seed: int = 0) -> dict:
     """Numpy ``FlatForest`` fields (``flat_forest_from_numpy``) of
     ``n_trees`` complete trees of ``depth`` levels, 2**depth leaves each:
-    at the defaults 20 480 leaves, past ``GEMM_MAX_LEAVES``, so inference
-    takes the level traversal. Each internal node splits a random feature
+    at the defaults 20 480 leaves, past ``GEMM_MAX_LEAVES``, so its GEMM
+    form keeps a sparse path. Each internal node splits a random feature
     at a uniform draw between that feature's 1st and 99th percentiles
     over the (F, H, W) ``stack`` (a continuous draw: no pixel's value sits
     on a threshold, so a rounding step of a feature flips no split); each

@@ -8,9 +8,11 @@ Measured on one CUDA card, with the ``chip_smoke.py`` inputs (8 synthetic
 scenes of 7 x 600 x 600 from seed 0):
 
 * ``forest_labels`` over the batch's 19-channel stacks with the bundled
-  scale's forest (``tools.fixtures.rule_forest``) and with a large forest
-  (100 trees fitted on ``LARGE_FOREST_SAMPLES`` pixels, some 6 000
-  leaves);
+  scale's forest (``tools.fixtures.rule_forest``), a large forest (100
+  trees fitted on ``LARGE_FOREST_SAMPLES`` pixels, some 6 000 leaves) and
+  a deep one (on ``DEEP_FOREST_SAMPLES``, an ROI raster's labelled
+  pixels: some 20 000 leaves at depth 23 to 25, past
+  ``GEMM_MAX_LEAVES``);
 * ``ccmin_prop`` over the batched rule path's 24 first-stage masks with
   their run-rank seeds;
 * ``cc_labels`` over the four masks the single-scene rule graph labels,
@@ -77,6 +79,8 @@ import torch
 
 L2_FLUSH_BYTES = 256 << 20     # over five times the H100's 50 MB L2
 LARGE_FOREST_SAMPLES = 2000
+# an ROI raster's labelled pixels, as an analyst trains the source's forest
+DEEP_FOREST_SAMPLES = 20000
 BATCH, SIZE, LARGE, SEED = 8, 600, 6000, 0
 BINS = 32768                   # the batched rule path's component-id cap
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
@@ -344,13 +348,12 @@ def reflected_tiling(scene: np.ndarray, size: int) -> np.ndarray:
     return np.ascontiguousarray(np.tile(block, reps)[:, :size, :size])
 
 
-def large_forest(stack0: np.ndarray, samples: int = LARGE_FOREST_SAMPLES):
-    """A 100-tree forest fitted by the port's trainer on the rule labels of
-    ``samples`` random pixels of a (19, H, W) stack (seed 7): some 6 000
-    leaves at 2 000 samples, within ``GEMM_MAX_LEAVES``."""
+def fitted_forest(stack0: np.ndarray, samples: int):
+    """A 100-tree FlatForest fitted by the port's trainer on the rule
+    labels of ``samples`` random pixels of a (19, H, W) stack (seed 7)."""
     from rs_image_segmentation_tpu_torch.core.config import ForestConfig
     from rs_image_segmentation_tpu_torch.models.forest import (
-        _gemm_for, fit_random_forest)
+        fit_random_forest)
     from rs_image_segmentation_tpu_torch.tools.fixtures import rule_labels
     cfg = ForestConfig()
     flat = stack0.reshape(stack0.shape[0], -1)
@@ -359,10 +362,15 @@ def large_forest(stack0: np.ndarray, samples: int = LARGE_FOREST_SAMPLES):
     forest, _ = fit_random_forest(flat[:, pick].T, rule_labels(stack0, pick),
                                   n_estimators=cfg.n_estimators,
                                   seed=cfg.seed)
-    gf = _gemm_for(forest, flat.shape[0])
-    if gf is None:
-        raise RuntimeError("the large forest exceeds GEMM_MAX_LEAVES")
-    return gf
+    return forest
+
+
+def large_forest(stack0: np.ndarray, samples: int = LARGE_FOREST_SAMPLES):
+    """The GemmForest of :func:`fitted_forest`: some 6 000 leaves at 2 000
+    samples, within ``GEMM_MAX_LEAVES``; some 20 000 at
+    ``DEEP_FOREST_SAMPLES``, past it (its path sparse)."""
+    from rs_image_segmentation_tpu_torch.models.forest import _gemm_for
+    return _gemm_for(fitted_forest(stack0, samples), stack0.shape[0])
 
 
 def measure(dev, which=KERNELS) -> dict:
@@ -392,7 +400,8 @@ def measure(dev, which=KERNELS) -> dict:
         x_cm = stacks.reshape(BATCH, 19, SIZE * SIZE)
         stack0 = stacks[0].cpu().numpy()
         forests = {"bundled": rule_forest(stack0)[0],
-                   "large": large_forest(stack0)}
+                   "large": large_forest(stack0),
+                   "deep": large_forest(stack0, DEEP_FOREST_SAMPLES)}
         for key, gf_cpu in forests.items():
             gf = GemmForest(*(t.to(dev) for t in gf_cpu))
             got = kernels.forest_labels(gf, x_cm)
@@ -400,6 +409,8 @@ def measure(dev, which=KERNELS) -> dict:
             res = kernel_numbers(lambda: kernels.forest_labels(gf, x_cm),
                                  flush, 5, 10, 5)
             res["leaves"] = int(gf.path.shape[1])
+            res["instance"] = kernels.forest_instance(gf)
+            res["walk_depth"] = kernels._packed_on(gf, dev)[2]["walk_depth"]
             res["labels_sum"] = int(got.long().sum().item())
             out[f"forest_labels, {key} forest"] = res
 

@@ -6,8 +6,8 @@ host-side (sklearn's ``RandomForestClassifier`` where it imports, read
 through ``models.forest.forest_from_sklearn``, else the port's NumPy CART
 trainer, which gives the JAX package's trees for a seed). Every predict
 goes through ``models.forest.forest_predict`` on the device, whose labels
-come from the CUDA kernel ``ops.kernels.forest_labels`` on a CUDA tensor
-within the leaf cap. The grid search's fold loop and the validation
+come from the CUDA kernel ``ops.kernels.forest_labels`` on a CUDA tensor,
+for a forest of any size. The grid search's fold loop and the validation
 report's metrics (``ops.stats.evaluate_predictions``) run there too.
 
 ``run_supervised_workflow`` is split as ``pipeline.classify`` splits stage

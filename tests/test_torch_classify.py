@@ -1,6 +1,6 @@
 """PyTorch port vs the JAX package on the CPU: forest prediction
-(``models.forest``: ``forest_from_sklearn``, the traversal, the GEMM form,
-``forest_predict``) and stage 3 (``pipeline.classify``: KMeans on a
+(``models.forest``: ``forest_from_sklearn``, the GEMM form within and past
+the leaf cap, ``forest_predict``) and stage 3 (``pipeline.classify``: KMeans on a
 stage-2 feature dict, training samples, ``forest_classify``, the
 three-class map)."""
 
@@ -22,6 +22,7 @@ from rs_image_segmentation_tpu_torch.pipeline.evaluate import (
     ClassificationEvaluator)
 from rs_image_segmentation_tpu_torch.tools.fixtures import (
     stretch_stats_batch, synthetic_scenes)
+from tests.forest_walk_ref import fields_of, walk_labels
 
 CFG = FeatureStageConfig()
 # The KMeans fits start from different random draws, so the port's mapped
@@ -98,12 +99,17 @@ def test_gemm_forest_matches_jax(sk_forest):
         np.asarray(jforest.gemm_forest_predict(jgf, jnp.asarray(x))))
 
 
-def test_traversal_matches_jax(sk_forest):
+def test_traversal_matches_jax(sk_forest, monkeypatch):
+    """Past the leaf cap (patched to 16) the port's proba comes from the
+    GEMM form with a sparse path; the JAX package walks the trees level
+    by level there. The two agree to f32 roundings."""
     clf, x = sk_forest
     forest, depth = tforest.forest_from_sklearn(clf)
     jf, _ = jforest.forest_from_sklearn(clf)
-    got = tforest._traversal_proba(forest, torch.from_numpy(x), depth,
-                                   chunk=1024)
+    monkeypatch.setattr(tforest, "GEMM_MAX_LEAVES", 16)
+    assert tforest._gemm_for(forest, 19).path.is_sparse
+    got = tforest.forest_predict_proba(forest, torch.from_numpy(x), depth,
+                                       chunk=1024)
     ref = np.asarray(jforest._traversal_proba(jf, jnp.asarray(x), depth,
                                               1024))
     # a mean of 8 f32 leaf rows, summed in another order than XLA's
@@ -112,14 +118,22 @@ def test_traversal_matches_jax(sk_forest):
 
 def test_forest_predict_past_the_leaf_cap_walks_the_trees(sk_forest,
                                                           monkeypatch):
+    """Past the leaf cap (patched to 16) ``forest_predict`` still takes
+    ``forest_labels`` (its plain version on the CPU) over a sparse path:
+    labels equal to the JAX package's level walk, the plain walk of
+    ``tests/forest_walk_ref.py`` and sklearn."""
     clf, x = sk_forest
     forest, depth = tforest.forest_from_sklearn(clf)
     jf, _ = jforest.forest_from_sklearn(clf)
     monkeypatch.setattr(tforest, "GEMM_MAX_LEAVES", 16)
-    assert tforest._gemm_for(forest, 19) is None
+    gf = tforest._gemm_for(forest, 19)
+    assert gf.path.is_sparse and gf.path.shape[1] > 16
     labels = tforest.forest_predict(forest, torch.from_numpy(x), depth)
     ref = np.asarray(jforest.forest_predict(jf, jnp.asarray(x), depth))
     np.testing.assert_array_equal(labels.numpy(), ref)
+    np.testing.assert_array_equal(
+        labels.numpy(), walk_labels(fields_of(forest), torch.from_numpy(x)))
+    np.testing.assert_array_equal(labels.numpy(), clf.predict(x))
 
 
 # ------------------------------------------------------------- stage 3

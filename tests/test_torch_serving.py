@@ -3,7 +3,7 @@ engine (``serving.engine``) and the HTTP front-end (``serving.server``,
 ``serving.client``), mirroring ``tests/test_serving.py`` against the port's
 engine on ``device="cpu"``; then the port against the JAX package
 (supervised maps >= 99.9 % of JAX's direct program, rule maps bit for
-bit), and the forest fallback past ``GEMM_MAX_LEAVES``.
+bit), and a forest past ``GEMM_MAX_LEAVES`` on the batched program.
 
 Exactness contract under test: a scene's class map from the engine is
 bit-identical to the port's direct program on that scene alone, however
@@ -52,6 +52,7 @@ from rs_image_segmentation_tpu_torch.serving.engine import (EngineConfig,
                                                             InferenceEngine)
 from rs_image_segmentation_tpu_torch.serving.server import make_server
 from rs_image_segmentation_tpu_torch.tools.fixtures import deep_forest_fields
+from tests.forest_walk_ref import walk_labels
 
 SMALL_CFG = FeatureStageConfig(glcm=GLCMConfig(window_size=8, step_size=8,
                                                levels=8))
@@ -820,7 +821,7 @@ def test_warmup_while_serving(forest):
 def deep_forest():
     """Five complete depth-12 trees (20 480 leaves, past GEMM_MAX_LEAVES)
     over a stretched scene's stack: ``(port FlatForest, depth, JAX
-    FlatForest)``, the same arrays in both packages."""
+    FlatForest, fields)``, the same arrays in both packages."""
     scene = _scenes(1, seed=99)[0]
     pre = apply_u8_lut(torch.from_numpy(scene), torch.from_numpy(_lut(scene)))
     stack = hierarchical_stack_fused(pre.float(), SMALL_CFG, device=DEV)
@@ -829,23 +830,25 @@ def deep_forest():
     assert tforest.n_leaves(tflat) > tforest.GEMM_MAX_LEAVES
     jflat = jforest.FlatForest(*(jnp.asarray(fields[k])
                                  for k in jforest.FlatForest._fields))
-    return tflat, 12, jflat
+    return tflat, 12, jflat, fields
 
 
 def _fallback_direct(scene, forest):
-    """The port's standard graph on the scene: fused stack, then
-    forest_predict (the level traversal past the cap)."""
-    pre = apply_u8_lut(torch.from_numpy(scene), torch.from_numpy(_lut(scene)))
-    stack = hierarchical_stack_fused(pre.float(), SMALL_CFG, device=DEV)
-    pred = tforest.forest_predict(forest[0], stack.reshape(-1, 19), forest[1])
-    return pred.reshape(H, W).to(torch.uint8).numpy()
+    """The port's supervised program on the scene alone (B = 1) with a
+    forest past the cap, and the plain walk of ``tests/forest_walk_ref.py``
+    over that program's own stack: ``(map, walked map)``."""
+    got = _direct(scene, forest)
+    stack = turbo.hierarchical_stack_turbo_cm(scene, _lut(scene), SMALL_CFG,
+                                              device=DEV)
+    walked = walk_labels(forest[3], stack.reshape(19, -1).T)
+    return got, walked.reshape(H, W).numpy().astype(np.uint8)
 
 
 @pytest.fixture(scope="module")
 def fallback_maps(deep_forest):
     """Two scenes through an engine holding the deep forest, coalesced:
     ``(scenes, maps, stats)``."""
-    f, depth, _ = deep_forest
+    f, depth, _, _ = deep_forest
     scenes = _scenes(2, seed=97)
     with InferenceEngine(f, depth, cfg=SMALL_CFG,
                          engine_cfg=EngineConfig(max_batch=4,
@@ -859,24 +862,29 @@ def fallback_maps(deep_forest):
 
 
 def test_forest_fallback_past_leaf_cap_exact(deep_forest, fallback_maps):
-    """Past GEMM_MAX_LEAVES the engine takes the per-scene standard graph
-    unpadded, bit-equal to the port's direct route."""
+    """Past GEMM_MAX_LEAVES the engine keeps the batched supervised
+    program (its GEMM form's path sparse): each map bit-equal to the
+    port's direct program at B = 1 and to the plain walk over that
+    program's stack."""
     scenes, maps, st = fallback_maps
-    assert st["gemm_forest"] is False
+    assert st["gemm_forest"] is True
+    assert tforest._gemm_for(deep_forest[0], 19).path.is_sparse
     assert st["batch_sizes"] == {2: 1} and st["padded_scenes"] == 0
     for s, m in zip(scenes, maps):
-        np.testing.assert_array_equal(m, _fallback_direct(s, deep_forest))
+        got, walked = _fallback_direct(s, deep_forest)
+        np.testing.assert_array_equal(m, got)
+        np.testing.assert_array_equal(m, walked)
         assert len(np.unique(m)) > 1
 
 
 def test_forest_fallback_matches_jax(deep_forest, fallback_maps):
-    """The fallback's maps against JAX's hierarchical_stack_fused +
+    """The deep forest's maps against JAX's hierarchical_stack_fused +
     forest_predict on the same forest arrays: >= 99.9 % (the reference's
     map contract; the stacks agree to about 1e-6, and no threshold sits
     on a pixel's value). JAX's forest_predict takes the level traversal
     under jit, where the forest is traced, as it does past the cap."""
     scenes, maps, _ = fallback_maps
-    _, depth, jflat = deep_forest
+    _, depth, jflat, _ = deep_forest
     predict = jax.jit(lambda f, x: jforest.forest_predict(f, x, depth))
     for s, m in zip(scenes, maps):
         pre = _lut(s)[np.arange(7)[:, None, None], s]

@@ -341,7 +341,15 @@ def _session():
         b = add("turbo.batch", None, t + 0.01, t + 0.03)
         add("turbo.inputs", b, t + 0.01, t + 0.014)
         add("turbo.fetch", b, t + 0.02, t + 0.021)
+        f = add("forest.labels", b, t + 0.022, t + 0.0225)
+        f.counts.update(pixels=1000, walk_steps=400_000)
     return recs
+
+
+# the cell's unit of work, as the forest batch hands it to the readers:
+# 250 node comparisons a pixel, against 400 steps a pixel walked above
+REC = {"work": {"calls": {"forest_labels": [
+    {"pixels": 2000, "comparisons": 500_000}]}}}
 
 
 EXPECTED_MS = {
@@ -349,9 +357,10 @@ EXPECTED_MS = {
     "large_launch_ms.large": 140.0 - 20.0 + 140.0 - 20.0,
     "large_fetch_ms.large": 40.0,
     "inputs_ms.batch": 4.0,
-    "launch_ms.batch": 15.0,
+    "launch_ms.batch": 14.5,            # the forest's launch left out
     "stretch_params_ms.batch": 100.0 + 4.0,
     "stretch_hist_ms.batch": 100.0 + 6.0,
+    "forest_walk_efficiency": 100.0 * 250 / 400,
 }
 
 
@@ -362,19 +371,32 @@ def test_readers_on_a_made_up_session(monkeypatch):
     recs = _session()
     monkeypatch.setattr(timing, "spans", lambda: list(recs))
     for name, ms in EXPECTED_MS.items():
-        assert manifest.metric_reader(name).read({}) == pytest.approx(ms)
+        assert manifest.metric_reader(name).read(REC) == pytest.approx(ms)
+    # the forest kernel's device time over its spans, from a trace
+    trace = {"kernels": {"forest_labels_kernel": {"total_s": 0.006,
+                                                  "count": 2}}}
+    assert manifest.metric_reader("forest_device_ms.batch").read(
+        {"trace": trace}) == pytest.approx(3.0)
     monkeypatch.setattr(timing, "spans", lambda: [])
     for name in EXPECTED_MS:
-        assert manifest.metric_reader(name).read({}) is None
+        assert manifest.metric_reader(name).read(REC) is None
+    assert manifest.metric_reader("forest_device_ms.batch").read(
+        {"trace": trace}) is None
     monkeypatch.setattr(timing, "spans", lambda: [
         r for r in recs if not r.name.startswith("turbo.")])
     assert manifest.metric_reader("launch_ms.batch").read({}) is None
     assert manifest.metric_reader("large_fetch_ms.large").read({}) == \
         pytest.approx(40.0)
+    # a program without the forest's span reads nothing for it
+    monkeypatch.setattr(timing, "spans", lambda: [
+        r for r in recs if r.name != "forest.labels"])
+    assert manifest.metric_reader("forest_walk_efficiency").read(REC) is None
+    assert manifest.metric_reader("forest_device_ms.batch").read(
+        {"trace": trace}) is None
     # a program without spans at all (an older checkout)
     monkeypatch.delattr(timing, "spans")
     for name in EXPECTED_MS:
-        assert manifest.metric_reader(name).read({}) is None
+        assert manifest.metric_reader(name).read(REC) is None
 
 
 # ------------------------------------------------------ engine counters

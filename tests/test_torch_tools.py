@@ -29,11 +29,14 @@ from rs_image_segmentation_tpu_torch.models import forest as tforest
 from rs_image_segmentation_tpu_torch.pipeline.features import (
     hierarchical_stack_fused)
 from rs_image_segmentation_tpu_torch.pipeline.preprocess import (
-    preprocess_bands)
+    build_stretch_lut)
 from rs_image_segmentation_tpu_torch.tools import batch as tbatch
 from rs_image_segmentation_tpu_torch.tools import sampling as tsampling
 from rs_image_segmentation_tpu_torch.tools import supervised as tsupervised
+from rs_image_segmentation_tpu_torch.pipeline.turbo import (
+    classify_scenes_turbo, hierarchical_stack_turbo_cm)
 from rs_image_segmentation_tpu_torch.tools.fixtures import deep_forest_fields
+from tests.forest_walk_ref import walk_labels
 
 CFG = FeatureStageConfig(glcm=GLCMConfig(window_size=16, step_size=16,
                                          levels=8))
@@ -410,9 +413,10 @@ def test_batch_workflow_streamed_branch_and_duplicate_stems(tmp_path):
 def test_batch_workflow_past_the_leaf_cap(tmp_path):
     """A forest past GEMM_MAX_LEAVES: the JAX workflow's streamed branch
     reads ``_gemm_for(...).path`` of None and raises AttributeError (its
-    comment sends such forests to a traversal fallback); the port's maps
-    equal ``hierarchical_stack_fused`` + ``forest_predict`` (the level
-    traversal) scene by scene."""
+    comment sends such forests to a traversal fallback); the port keeps
+    the turbo branch (its GEMM form's path sparse), its maps equal to
+    ``classify_scenes_turbo`` on the scenes and to the plain walk of
+    ``tests/forest_walk_ref.py`` over that program's stack."""
     rng = np.random.default_rng(14)
     scenes = [rng.integers(0, 256, (7, 32, 32)).astype(np.uint8)
               for _ in range(2)]
@@ -420,7 +424,7 @@ def test_batch_workflow_past_the_leaf_cap(tmp_path):
     stack = hierarchical_stack_fused(scenes[0], CFG, device=DEV)
     fields = deep_forest_fields(stack.permute(2, 0, 1).numpy())
     deep = tforest.flat_forest_from_numpy(fields)
-    assert tforest._gemm_for(deep, 19) is None
+    assert tforest._gemm_for(deep, 19).path.is_sparse
     jdeep = jforest.FlatForest(*(jnp.asarray(fields[k])
                                  for k in jforest.FlatForest._fields))
     assert jforest._gemm_for(jdeep, 19) is None
@@ -430,11 +434,18 @@ def test_batch_workflow_past_the_leaf_cap(tmp_path):
     out = tbatch.run_batch_workflow(paths, deep, 12, str(tmp_path / "out"),
                                     cfg=CFG, device=DEV)
     cal = CalibrationConfig()
-    for s, m in zip(scenes, _maps(out)):
-        pre = preprocess_bands(s, cal.gains, cal.biases, device=DEV)
-        st = hierarchical_stack_fused(pre.float(), CFG, device=DEV)
-        want = tforest.forest_predict(deep, st.reshape(-1, 19), 12)
-        assert np.array_equal(m, want.reshape(32, 32).numpy().astype(
+    luts = np.stack([build_stretch_lut(s, np.asarray(cal.gains),
+                                       np.asarray(cal.biases))
+                     for s in scenes]).astype(np.uint8)
+    want = classify_scenes_turbo(np.stack(scenes), luts,
+                                 tforest._gemm_for(deep, 19), CFG,
+                                 device=DEV).numpy()
+    stacks = hierarchical_stack_turbo_cm(np.stack(scenes), luts, CFG,
+                                         device=DEV)
+    for i, m in enumerate(_maps(out)):
+        assert np.array_equal(m, want[i])
+        walked = walk_labels(fields, stacks[i].reshape(19, -1).T)
+        assert np.array_equal(m, walked.reshape(32, 32).numpy().astype(
             np.uint8))
         assert len(np.unique(m)) > 1
 
