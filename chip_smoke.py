@@ -234,6 +234,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
      warm-up; the one-rank group's once the spawned processes are gone),
      the 6000^2 call's peak memory; it prints a ``{"parallel": ...}``
      line;
+ 24. (after phase 23, ``deep_forest_phase``) the supervised stack as CUDA
+     graph replays: ``classify_scenes_turbo`` with the path's forest and
+     the deep one, bit-equal to the eager route (with the host
+     histograms, with numpy in and none, and scene 0 alone), one
+     ``lut_hist`` and one ``forest_labels`` launch a replayed batch, one
+     capture per batch shape, the count ``stack_graph`` of a replay, and
+     eager against graphed wall ms a batch;
  then the card's line, the kernels' JSON line and the result line.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs no
@@ -1764,6 +1771,86 @@ def deep_forest_phase(dev, cfg, scenes_d, luts_d, params_d, hists_d,
           f"{bms:.4f} ({by}); walk efficiency "
           f"{out['walk_efficiency']:.4f}; main path {out['main_path_ms']:.3f}"
           f" ms a batch (runs {[round(w, 3) for w in walls]})", flush=True)
+    return out, gf
+
+
+def graph_phase(dev, cfg, scenes, luts, scenes_d, luts_d, params_d,
+                hists_d, forests) -> dict:
+    """Phase 24: the supervised program's stack as CUDA graph replays
+    (``pipeline.turbo._StackGraphs``) against the eager route, bit for bit,
+    with each of ``forests`` (name -> GemmForest on the card): the batch
+    with the host histograms (the serving engine's call), with numpy in
+    and no histograms (the benchmark's), and scene 0 alone; one
+    ``lut_hist`` and one ``forest_labels`` launch a replayed batch and
+    nothing else; one capture per batch shape; the count ``stack_graph``
+    of a replayed batch's ``turbo.batch`` span; wall ms a batch, eager and
+    graphed, inputs on the card."""
+    from rs_image_segmentation_tpu_torch.pipeline import turbo
+    from rs_image_segmentation_tpu_torch.utils import timing
+    from rs_image_segmentation_tpu_torch.utils.timing import span
+
+    def eager(gf, sd, ld, sp=None, hh=None):
+        return turbo._labels_eager(sd, ld, sp, hh, gf, cfg).reshape(
+            sd.shape[0], HEIGHT, WIDTH).to(torch.uint8)
+
+    captures = turbo._StackGraphs.captures
+    out = {}
+    for name, gf in forests.items():
+        calls = {
+            "with the host histograms": (
+                lambda: turbo.classify_scenes_turbo(
+                    scenes_d, luts_d, gf, cfg, stretch_params=params_d,
+                    stretch_hists=hists_d, device=dev),
+                eager(gf, scenes_d, luts_d, params_d, hists_d)),
+            "numpy in, no histograms": (
+                lambda: turbo.classify_scenes_turbo(scenes, luts, gf, cfg,
+                                                    device=dev),
+                eager(gf, scenes_d, luts_d)),
+            "scene 0": (
+                lambda: turbo.classify_scenes_turbo(scenes[:1], luts[:1], gf,
+                                                    cfg, device=dev),
+                eager(gf, scenes_d[:1], luts_d[:1]))}
+        for label, (run, want) in calls.items():
+            for _ in range(2):          # a capture or a replay, then a replay
+                got, launches = counted(run)
+            check(torch.equal(got, want), f"graphed maps bit-equal to the "
+                  f"eager route [{name} forest, {label}]")
+            check(launches["lut_hist"] == 1 and launches["forest_labels"] == 1
+                  and sum(launches.values()) == 2,
+                  f"a replayed batch launches lut_hist and forest_labels once "
+                  f"each [{name}, {label}]: {launches}")
+        with span("unrecorded"):
+            pass
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            calls["numpy in, no histograms"][0]()
+        root, = [r for r in timing.spans() if r.name == "turbo.batch"]
+        check(root.counts.get("stack_graph") == 1,
+              f"a replayed batch's turbo.batch counts stack_graph 1: "
+              f"{root.counts}")
+        walls = {}
+        graphed = (lambda: turbo.classify_scenes_turbo(
+            scenes_d, luts_d, gf, cfg, device=dev))
+        for route, fn in (("eager", lambda: eager(gf, scenes_d, luts_d)),
+                          ("graphed", graphed),
+                          ("eager", lambda: eager(gf, scenes_d, luts_d)),
+                          ("graphed", graphed)):
+            fn()
+            torch.cuda.synchronize()
+            for _ in range(5):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.setdefault(route, []).append(
+                    (time.perf_counter() - t0) * 1e3)
+        out[name] = {k: statistics.median(v) for k, v in walls.items()}
+    new = turbo._StackGraphs.captures - captures
+    check(new <= 2, f"one capture per batch shape (8 and 1 scenes): {new}")
+    out["captures"] = new
+    out["graph_shapes"] = len(turbo._STACK_GRAPHS)
+    print(f"stack graphs: maps bit-equal to the eager route, one lut_hist "
+          f"and one forest_labels launch a batch; wall ms a batch, inputs "
+          f"on the card: {out}", flush=True)
     return out
 
 
@@ -4307,8 +4394,11 @@ def main() -> int:
             "bound_by": by, "library_ms": lib, "library_note": lib_note,
             **extra})
 
-    rows[1]["deep_forest"] = deep_forest_phase(
+    rows[1]["deep_forest"], gf_deep = deep_forest_phase(
         dev, cfg, scenes_d, luts_d, params_d, hists_d, stack0, flush)
+    rows[0]["stack_graphs"] = graph_phase(
+        dev, cfg, scenes, luts, scenes_d, luts_d, params_d, hists_d,
+        {"path's": gf, "deep": gf_deep})
     rows += rule_phases(dev, cfg, scenes, luts, params, hists, scenes_d,
                         luts_d, params_d, hists_d, rows[0])
     rows.append(single_scene_phases(dev, cfg, scenes, luts, scenes_d,

@@ -178,7 +178,8 @@ def lut_hist_instance(planes: int, n: int, unit: int, skip_hist: bool
 
 def lut_hist(scene_u8: torch.Tensor, lut_u8: torch.Tensor,
              out_u8: bool = False, sp: "torch.Tensor | None" = None,
-             skip_hist: bool = False):
+             skip_hist: bool = False, out: "torch.Tensor | None" = None,
+             hist_out: "torch.Tensor | None" = None):
     """``(..., C, H, W)`` uint8 scene + ``(..., C, 256)`` uint8 LUT ->
     (stretched scene holding exact uint8 levels, f32 or uint8 with
     ``out_u8``; stretched-value histogram ``(..., C, 256)`` int32).
@@ -187,7 +188,10 @@ def lut_hist(scene_u8: torch.Tensor, lut_u8: torch.Tensor,
     ``build_stretch_params``. Their mode-1 arithmetic equals the table for
     every DN in the scene, so both versions serve every band from the
     table and only check ``sp``'s shape. ``skip_hist=True`` (requires
-    ``sp``, as in the JAX package) returns the stretched scene only."""
+    ``sp``, as in the JAX package) returns the stretched scene only.
+    ``out`` and ``hist_out``: optional contiguous tensors of the results'
+    shapes and dtypes on the scene's device, written and returned in place
+    of new ones (``hist_out`` not with ``skip_hist``)."""
     _require(scene_u8.dtype == torch.uint8 and scene_u8.dim() in (3, 4),
              "scene_u8 must be a (C, H, W) or (B, C, H, W) uint8 tensor")
     _require(lut_u8.dtype == torch.uint8
@@ -200,27 +204,43 @@ def lut_hist(scene_u8: torch.Tensor, lut_u8: torch.Tensor,
                  "sp must be int32 of shape (..., C, 3 + 2K)")
     elif skip_hist:
         raise ValueError("skip_hist requires sp (the mixed kernel)")
-    if scene_u8.device.type == "cpu":
-        return lut_hist_plain(scene_u8, lut_u8, out_u8, skip_hist)
+    dev = scene_u8.device
+    hist_shape = (*scene_u8.shape[:-2], 256)
+    for t, shape, dtype in ((out, scene_u8.shape,
+                             torch.uint8 if out_u8 else torch.float32),
+                            (hist_out, hist_shape, torch.int32)):
+        if t is not None:
+            _require(t.shape == shape and t.dtype == dtype
+                     and t.device == dev and t.is_contiguous(),
+                     f"a destination must be a contiguous {dtype} tensor "
+                     f"of shape {tuple(shape)} on {dev}")
+    _require(hist_out is None or not skip_hist,
+             "skip_hist computes no histogram for hist_out")
+    if dev.type == "cpu":
+        res = lut_hist_plain(scene_u8, lut_u8, out_u8, skip_hist)
+        res = res if isinstance(res, tuple) else (res,)
+        res = tuple(r if d is None else d.copy_(r)
+                    for r, d in zip(res, (out, hist_out)))
+        return res[0] if skip_hist else res
     _require_cuda(scene_u8, lut_u8)
     h, w = scene_u8.shape[-2:]
-    dev = scene_u8.device
-    out = torch.empty(scene_u8.shape, device=dev,
-                      dtype=torch.uint8 if out_u8 else torch.float32)
+    if out is None:
+        out = torch.empty(scene_u8.shape, device=dev,
+                          dtype=torch.uint8 if out_u8 else torch.float32)
     planes, n = scene_u8.numel() // (h * w), h * w
     unit = lut_hist_unit(scene_u8, out)
     instance = lut_hist_instance(planes, n, unit, skip_hist)
     if instance == "cluster":      # every bin written once, by its owner
         span = -(-n // unit // LUT_CLUSTER)
-        hist = torch.empty((*scene_u8.shape[:-2], 256), dtype=torch.int32,
-                           device=dev)
+        hist = (torch.empty(hist_shape, dtype=torch.int32, device=dev)
+                if hist_out is None else hist_out)
     else:
         _, span = lut_hist_plan(planes, n, unit,
                                 LUT_BLOCKS_PER_SM * _sm_count(dev.index))
         # an accumulator: blocks add their counts into it with atomics
         hist = (None if skip_hist else
-                torch.zeros((*scene_u8.shape[:-2], 256), dtype=torch.int32,
-                            device=dev))
+                torch.zeros(hist_shape, dtype=torch.int32, device=dev)
+                if hist_out is None else hist_out.zero_())
     _call("lut_hist", "lut_hist_launch",
           [_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong,
            ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,

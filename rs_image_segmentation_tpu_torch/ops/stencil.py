@@ -16,7 +16,7 @@ Border conventions (OpenCV):
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import math
 
@@ -25,14 +25,30 @@ import torch
 
 _PAD_MODE = {"reflect101": "reflect", "reflect": "symmetric"}
 
+# (length, pads, np.pad mode, device) -> the padded index ramp on the device
+_PAD_INDEX: Dict[tuple, torch.Tensor] = {}
+
+
+def pad_index(n: int, pads: Tuple[int, int], mode: str,
+              device: torch.device) -> torch.Tensor:
+    """``np.pad(np.arange(n), pads, mode)`` as an int64 tensor on
+    ``device``, copied there once per key: later calls copy nothing from
+    the host, so a stencil on a CUDA tensor neither waits for a pageable
+    copy nor blocks a CUDA graph capture. np.pad of an index ramp is
+    numpy's own border rule for every mode."""
+    key = (n, pads, mode, device)
+    idx = _PAD_INDEX.get(key)
+    if idx is None:
+        idx = _PAD_INDEX[key] = torch.from_numpy(
+            np.pad(np.arange(n), pads, mode=mode)).to(device)
+    return idx
+
 
 def _pad_axis(x: torch.Tensor, pads: Tuple[int, int], dim: int,
               mode: str) -> torch.Tensor:
     if pads == (0, 0):
         return x
-    # np.pad of an index ramp is numpy's own border rule for every mode
-    idx = np.pad(np.arange(x.shape[dim]), pads, mode=mode)
-    return x.index_select(dim, torch.from_numpy(idx).to(x.device))
+    return x.index_select(dim, pad_index(x.shape[dim], pads, mode, x.device))
 
 
 def pad2d(x: torch.Tensor, pad_h: Tuple[int, int], pad_w: Tuple[int, int],

@@ -29,6 +29,7 @@ match it to ~1e-6 and class maps to > 99.9 %; only summation orders
 from __future__ import annotations
 
 import math
+import threading
 from typing import Sequence
 
 import numpy as np
@@ -84,22 +85,24 @@ def percentiles_from_counts(counts: torch.Tensor, values: torch.Tensor,
 # ------------------------------------------------------- feature stack
 
 def _preamble(scene_u8: torch.Tensor, stretch_lut_u8: torch.Tensor,
-              sp=None, hist=None):
+              sp=None, hist=None, out=None, hist_out=None):
     """Stretch LUT + histogram through kernel 1 (``ops.kernels.lut_hist``).
     With both ``sp`` and a host-precomputed ``hist`` (build_stretch_stats,
-    exact) the kernel skips histogram accumulation."""
+    exact) the kernel skips histogram accumulation. ``out`` and
+    ``hist_out``: optional tensors the stretched scene and its histogram
+    are written to (a given ``hist`` is copied into ``hist_out``)."""
     if hist is not None and sp is not None:
-        return lut_hist(scene_u8, stretch_lut_u8, sp=sp, skip_hist=True), hist
-    return lut_hist(scene_u8, stretch_lut_u8, sp=sp)
+        st = lut_hist(scene_u8, stretch_lut_u8, sp=sp, skip_hist=True,
+                      out=out)
+        return st, (hist if hist_out is None else hist_out.copy_(hist))
+    return lut_hist(scene_u8, stretch_lut_u8, sp=sp, out=out,
+                    hist_out=hist_out)
 
 
-def _stack_cm_from_parts(stretched_f32: torch.Tensor, hist: torch.Tensor,
-                         cfg: FeatureStageConfig) -> torch.Tensor:
-    """(B, 7, H, W) stretched scenes (f32 holding exact uint8 levels) and
-    their (B, 7, 256) histograms -> (B, 19, H, W) stacks. Channel order: 7
-    level-1 (ndwi, mndwi, ndvi, evi, ndbi, bsi, pc1), their 7 box-filter
-    context planes, then 5 level-2 (GLCM contrast, homogeneity, grad5,
-    std5, Sobel magnitude)."""
+def _stack_front(stretched_f32: torch.Tensor, hist: torch.Tensor,
+                 cfg: FeatureStageConfig) -> dict:
+    """The stack up to ``eigh``: normalised bands, spectral indices and
+    the PCA's centred bands and their (B, 7, 7) covariance ``cov``."""
     b, c, h, w = stretched_f32.shape
     n = h * w
     eps = cfg.normalize.epsilon
@@ -134,10 +137,20 @@ def _stack_cm_from_parts(stretched_f32: torch.Tensor, hist: torch.Tensor,
     xc = xs - mean[..., None, None]
     flat = xc.reshape(b, c, n)
     cov = torch.stack([f @ f.T for f in flat]) / (n - 1)
-    # on a CUDA device eigh reads its error flags back, so the host waits
-    # here for the device to catch up
-    with span("turbo.fetch"):
-        eigvals, eigvecs = torch.linalg.eigh(cov)
+    return {"hist": hist, "bands01": bands01, "norm_vals": norm_vals,
+            "idx": idx, "xc": xc, "cov": cov}
+
+
+def _stack_back(front: dict, eigvals: torch.Tensor, eigvecs: torch.Tensor,
+                cfg: FeatureStageConfig) -> torch.Tensor:
+    """The stack from ``eigh``'s (B, 7) values and (B, 7, 7) vectors of
+    ``front["cov"]`` on: PC1, the texture branch and the context planes."""
+    hist, bands01, norm_vals = front["hist"], front["bands01"], \
+        front["norm_vals"]
+    idx, xc = front["idx"], front["xc"]
+    b, c, h, w = xc.shape
+    n = h * w
+    eps = cfg.normalize.epsilon
     top = torch.argmax(eigvals, dim=-1)                      # (B,)
     comp0 = torch.gather(eigvecs, 2, top[:, None, None].expand(b, c, 1))[..., 0]
     peak = torch.argmax(torch.abs(comp0), dim=-1, keepdim=True)
@@ -173,6 +186,24 @@ def _stack_cm_from_parts(stretched_f32: torch.Tensor, hist: torch.Tensor,
     level_2 = torch.stack([glcm["contrast"], glcm["homogeneity"], grad5,
                            std5, smag], dim=1)               # (B, 5, H, W)
     return torch.cat([level_1, ctx, level_2], dim=1)         # (B, 19, H, W)
+
+
+def _eigh(cov: torch.Tensor):
+    # on a CUDA device eigh reads its error flags back, so the host waits
+    # here for the device to catch up
+    with span("turbo.fetch"):
+        return torch.linalg.eigh(cov)
+
+
+def _stack_cm_from_parts(stretched_f32: torch.Tensor, hist: torch.Tensor,
+                         cfg: FeatureStageConfig) -> torch.Tensor:
+    """(B, 7, H, W) stretched scenes (f32 holding exact uint8 levels) and
+    their (B, 7, 256) histograms -> (B, 19, H, W) stacks. Channel order: 7
+    level-1 (ndwi, mndwi, ndvi, evi, ndbi, bsi, pc1), their 7 box-filter
+    context planes, then 5 level-2 (GLCM contrast, homogeneity, grad5,
+    std5, Sobel magnitude)."""
+    front = _stack_front(stretched_f32, hist, cfg)
+    return _stack_back(front, *_eigh(front["cov"]), cfg)
 
 
 def hierarchical_stack_turbo_cm(scene_u8, stretch_lut_u8,
@@ -216,6 +247,119 @@ def _batch_inputs(scenes_u8, stretch_luts_u8, stretch_params, stretch_hists,
     return out
 
 
+def _labels_eager(scenes: torch.Tensor, luts: torch.Tensor, sp, hh,
+                  gf: GemmForest, cfg: FeatureStageConfig) -> torch.Tensor:
+    """(B, H * W) int32 forest labels of a batch on its device, every
+    operation launched from Python: the preamble, the stack, the forest."""
+    stacks = _stack_cm_from_parts(*_preamble(scenes, luts, sp, hh), cfg)
+    b, f, h, w = stacks.shape
+    return forest_labels(gf, stacks.reshape(b, f, h * w))
+
+
+class _StackGraphs:
+    """The stack of one batch shape on one CUDA device as two captured
+    CUDA graphs, split at ``eigh`` (whose error flags the host reads):
+    graph A from the histogram percentiles to the PCA covariance, graph B
+    from ``eigh``'s outputs to the (B, 19, H, W) stack. ``lut_hist`` writes
+    straight into graph A's static inputs; ``eigh`` and ``forest_labels``
+    run eagerly between and after the replays, as one launch each.
+
+    The first :meth:`labels` runs the batch eagerly on a side stream, then
+    captures both graphs into one private memory pool (about the eager
+    stack's peak); later calls replay them. ``lock`` holds from the write
+    into the static inputs to the forest's launch, and ``done`` (recorded
+    after that launch) orders a caller on another stream behind the last
+    one's use of the static buffers."""
+
+    captures = 0         # graph pairs captured in this process
+
+    def __init__(self, shape, cfg: FeatureStageConfig, dev: torch.device):
+        self.cfg, self.dev = cfg, dev
+        self.lock = threading.Lock()
+        self.done = torch.cuda.Event()
+        self.graphs = None
+        b, c, h, w = shape
+        f32 = dict(dtype=torch.float32, device=dev)
+        self.stretched = torch.empty(shape, **f32)
+        self.hist = torch.empty((b, c, 256), dtype=torch.int32, device=dev)
+        self.eigvals = torch.empty((b, c), **f32)
+        self.eigvecs = torch.empty((b, c, c), **f32)
+
+    def _capture(self, stream: torch.cuda.Stream) -> None:
+        with span("turbo.capture"):
+            graph_a, graph_b = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+            # thread_local: other threads (a server's) may call CUDA
+            # while this one captures
+            with torch.cuda.graph(graph_a, stream=stream,
+                                  capture_error_mode="thread_local"):
+                self.front = _stack_front(self.stretched, self.hist,
+                                          self.cfg)
+            with torch.cuda.graph(graph_b, pool=graph_a.pool(),
+                                  stream=stream,
+                                  capture_error_mode="thread_local"):
+                self.stack = _stack_back(self.front, self.eigvals,
+                                         self.eigvecs, self.cfg)
+            self.graphs = (graph_a, graph_b)
+            _StackGraphs.captures += 1
+
+    def labels(self, scenes, luts, sp, hh, gf: GemmForest):
+        """``(labels, replayed)``: the batch's (B, H * W) int32 forest
+        labels, a new tensor, and whether the stack ran as replays."""
+        with torch.cuda.device(self.dev), self.lock:
+            stream = torch.cuda.current_stream(self.dev)
+            if self.graphs is None:
+                side = torch.cuda.Stream(self.dev)
+                side.wait_stream(stream)
+                with torch.cuda.stream(side):
+                    labels = _labels_eager(scenes, luts, sp, hh, gf,
+                                           self.cfg)
+                stream.wait_stream(side)
+                labels.record_stream(stream)
+                self._capture(side)
+                return labels, False
+            stream.wait_event(self.done)
+            _preamble(scenes, luts, sp, hh, out=self.stretched,
+                      hist_out=self.hist)
+            graph_a, graph_b = self.graphs
+            graph_a.replay()
+            eigvals, eigvecs = _eigh(self.front["cov"])
+            self.eigvals.copy_(eigvals)
+            self.eigvecs.copy_(eigvecs)
+            graph_b.replay()
+            b, f, h, w = self.stack.shape
+            labels = forest_labels(gf, self.stack.reshape(b, f, h * w))
+            self.done.record(stream)
+            return labels, True
+
+
+# (device, B, C, H, W, FeatureStageConfig) -> its _StackGraphs
+_STACK_GRAPHS: "dict[tuple, _StackGraphs]" = {}
+_STACK_GRAPHS_LOCK = threading.Lock()
+# pixels (B * H * W) of the batch shapes whose graphs a device holds at
+# most: each holds a private pool of about the eager stack's peak, some
+# 0.7 GB a megapixel, until the process ends; 16 tiles of 600 x 600 take
+# the serving engine's buckets 1, 2, 4 and 8 (about 4 GB)
+STACK_GRAPH_PIXELS = 16 * 600 * 600
+
+
+def _stack_graphs(shape, cfg: FeatureStageConfig, dev: torch.device
+                  ) -> "_StackGraphs | None":
+    """The graphs of a batch shape, made on its first call while the
+    shapes whose graphs ``dev`` holds, this one with them, stay within
+    ``STACK_GRAPH_PIXELS``; None past that (the batch runs eagerly: a
+    large batch's launches are a small share of its device time)."""
+    key = (dev, *shape, cfg)
+    with _STACK_GRAPHS_LOCK:
+        entry = _STACK_GRAPHS.get(key)
+        if entry is None:
+            held = sum(k[1] * k[3] * k[4] for k in _STACK_GRAPHS
+                       if k[0] == dev)
+            if held + shape[0] * shape[2] * shape[3] > STACK_GRAPH_PIXELS:
+                return None
+            entry = _STACK_GRAPHS[key] = _StackGraphs(shape, cfg, dev)
+    return entry
+
+
 def classify_scenes_turbo(scenes_u8, stretch_luts_u8, gf: GemmForest,
                           cfg: FeatureStageConfig = FeatureStageConfig(),
                           stretch_params=None, stretch_hists=None,
@@ -227,14 +371,27 @@ def classify_scenes_turbo(scenes_u8, stretch_luts_u8, gf: GemmForest,
     stretch params (build_stretch_params). ``stretch_hists``: optional
     (B, 7, 256) int32 host-precomputed stretched-value histograms
     (build_stretch_stats); with both, the preamble skips its histogram.
-    Marked ``turbo.batch``."""
-    with span("turbo.batch"):
+
+    On a CUDA device the stack replays the batch shape's captured graphs
+    (:class:`_StackGraphs`; the first call of a shape runs eagerly and
+    captures them) while the shapes with graphs stay within
+    ``STACK_GRAPH_PIXELS``; other batches, and every batch on the CPU, run
+    each operation eagerly. The maps are a new tensor either way. Marked ``turbo.batch``, with count
+    ``stack_graph``: 1 when the stack ran as replays, else 0."""
+    with span("turbo.batch") as rec:
         scenes, luts, sp, hh = _batch_inputs(scenes_u8, stretch_luts_u8,
                                              stretch_params, stretch_hists,
                                              device)
         b, _, h, w = scenes.shape
-        stacks = _stack_cm_from_parts(*_preamble(scenes, luts, sp, hh), cfg)
-        labels = forest_labels(gf, stacks.reshape(b, stacks.shape[1], h * w))
+        graphs = (_stack_graphs(scenes.shape, cfg, scenes.device)
+                  if scenes.device.type == "cuda" else None)
+        if graphs is None:
+            labels, replayed = _labels_eager(scenes, luts, sp, hh, gf,
+                                             cfg), False
+        else:
+            labels, replayed = graphs.labels(scenes, luts, sp, hh, gf)
+        if rec is not None:
+            rec.counts["stack_graph"] = int(replayed)
         return labels.reshape(b, h, w).to(torch.uint8)
 
 
