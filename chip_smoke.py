@@ -115,7 +115,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
      tile_rows 504 and the path's forest: ``preprocess_large`` equal to
      the host LUT and its histogram to ``band_histograms_u8``, its
      streaming mode (cap 0) equal to the resident one; ``lut_hist`` (uint8
-     out; the 504-row chunk with and without ``sp``/``skip_hist``, the
+     out; the 504-row chunk with and without ``skip_hist``, the
      456-row last chunk, the whole scene), ``raw_counts`` (both chunks, at
      16-byte aligned bases and 1 and 4 bytes past, and the scene's 12
      chunks into one accumulator, whose tables equal
@@ -475,8 +475,8 @@ def hist_cases(ids, dev) -> dict:
     }
 
 
-def rule_phases(dev, cfg, scenes, luts, params, hists, scenes_d, luts_d,
-                params_d, hists_d, lut_row) -> list:
+def rule_phases(dev, cfg, scenes, luts, hists, scenes_d, luts_d, hists_d,
+                lut_row) -> list:
     """Phases 7-9: the rule path's kernels against their plain versions,
     the rule path itself, and the rule kernels' rows of the JSON line."""
     from rs_image_segmentation_tpu_torch.core.config import RuleBasedConfig
@@ -488,7 +488,7 @@ def rule_phases(dev, cfg, scenes, luts, params, hists, scenes_d, luts_d,
     bins_hi = BINS // kernels.HIST_LO
 
     # ---- 7. kernels against their plain versions at the rule path's shapes
-    nd = turbo._rule_front(scenes_d, luts_d, cfg, params_d, hists_d)
+    nd = turbo._rule_front(scenes_d, luts_d, cfg, hists_d)
     stack3, min3 = turbo._rule_first_stage(*nd, rc)
     fg3 = stack3 != 0
     seeds = components.run_rank_seeds(fg3)
@@ -554,8 +554,8 @@ def rule_phases(dev, cfg, scenes, luts, params, hists, scenes_d, luts_d,
     # ---- 8. the rule path
     def rule_path():
         return turbo.rule_based_scenes_turbo_batch(
-            scenes_d, luts_d, cfg, stretch_params=params_d,
-            stretch_hists=hists_d, return_overflow=True, device=dev)
+            scenes_d, luts_d, cfg, stretch_hists=hists_d,
+            return_overflow=True, device=dev)
 
     (labels, overflow), launches = counted(rule_path)
     check(all(launches[k] > 0 for k in ("lut_hist", "ccmin_prop",
@@ -586,8 +586,7 @@ def rule_phases(dev, cfg, scenes, luts, params, hists, scenes_d, luts_d,
           f"(inputs resident on the card; runs {[round(w, 3) for w in walls]})")
     stage = {
         "front (preamble, percentiles, indices)": cuda_time_ms(
-            lambda: turbo._rule_front(scenes_d, luts_d, cfg, params_d,
-                                      hists_d), 5),
+            lambda: turbo._rule_front(scenes_d, luts_d, cfg, hists_d), 5),
         "thresholds and closings": cuda_time_ms(
             lambda: turbo._rule_first_stage(*nd, rc), 5),
         "min-area removal, first stage (24 masks)": cuda_time_ms(
@@ -601,8 +600,7 @@ def rule_phases(dev, cfg, scenes, luts, params, hists, scenes_d, luts_d,
           + "; ".join(f"{k} {v:.4f}" for k, v in stage.items()))
     t0 = time.perf_counter()
     cpu0 = turbo.rule_based_scenes_turbo_batch(
-        scenes[:1], luts[:1], cfg, stretch_params=params[:1],
-        stretch_hists=hists[:1], device="cpu")
+        scenes[:1], luts[:1], cfg, stretch_hists=hists[:1], device="cpu")
     agreement = float((cpu0[0] == labels[0].cpu()).double().mean())
     check(agreement >= 0.999, f"rule path card vs CPU agreement {agreement}")
     print(f"rule path, scene 0 on the CPU in {time.perf_counter() - t0:.1f} "
@@ -1498,8 +1496,8 @@ def mapped_kappa(ev, maps, truth) -> float:
                                 )["kappa"]
 
 
-def kmeans_phases(dev, cfg, scenes, luts, params, hists, scenes_d, luts_d,
-                  params_d, hists_d) -> dict:
+def kmeans_phases(dev, cfg, scenes, luts, hists, scenes_d, luts_d,
+                  hists_d) -> dict:
     """Phase 16: the KMeans batch program, ``kmeans_scenes_turbo_batch``,
     in three runs (per-scene fits, a shared fit, and a warm start from the
     shared fit's centroids), each with launch counts read around one call,
@@ -1513,12 +1511,11 @@ def kmeans_phases(dev, cfg, scenes, luts, params, hists, scenes_d, luts_d,
     from rs_image_segmentation_tpu_torch.utils.timing import cuda_time_ms
 
     t0 = time.perf_counter()
-    sc, lt, sp, hh = turbo._batch_inputs(scenes, luts, params, hists, "cpu")
-    xs_cpu = turbo.kmeans_features(sc, lt, cfg, sp, hh)
+    sc, lt, hh = turbo._batch_inputs(scenes, luts, hists, "cpu")
+    xs_cpu = turbo.kmeans_features(sc, lt, cfg, hh)
     cpu_stack_s = time.perf_counter() - t0
     rule_d = turbo.rule_based_scenes_turbo_batch(
-        scenes_d, luts_d, cfg, stretch_params=params_d,
-        stretch_hists=hists_d, device=dev)
+        scenes_d, luts_d, cfg, stretch_hists=hists_d, device=dev)
     rule_cpu = rule_d.cpu()
     ev_d = ClassificationEvaluator(device=dev)
     ev_cpu = ClassificationEvaluator(device="cpu")
@@ -1532,8 +1529,7 @@ def kmeans_phases(dev, cfg, scenes, luts, params, hists, scenes_d, luts_d,
         def run():
             return turbo.kmeans_scenes_turbo_batch(
                 scenes_d, luts_d, KMEANS_K, cfg, KMEANS_SEED, KMEANS_STRIDE,
-                stretch_params=params_d, stretch_hists=hists_d,
-                return_cents=True, device=dev, **kw)
+                stretch_hists=hists_d, return_cents=True, device=dev, **kw)
 
         (maps, cents), launches = counted(run)
         launches_by_run[label] = launches
@@ -1562,13 +1558,12 @@ def kmeans_phases(dev, cfg, scenes, luts, params, hists, scenes_d, luts_d,
             walls.append((time.perf_counter() - t1) * 1e3)
         batch_ms = statistics.median(walls[1:])
         # the split, with CUDA events; the fit syncs once an iteration
-        xs_d = turbo.kmeans_features(scenes_d, luts_d, cfg, params_d,
-                                     hists_d)
+        xs_d = turbo.kmeans_features(scenes_d, luts_d, cfg, hists_d)
         fit_args = (KMEANS_K, KMEANS_SEED, KMEANS_STRIDE, shared,
                     kw.get("init_cents"))
         cents_b, _, n_iter = turbo.kmeans_fit(xs_d, *fit_args)
         stack_ms = cuda_time_ms(lambda: turbo.kmeans_features(
-            scenes_d, luts_d, cfg, params_d, hists_d), 3, 1)
+            scenes_d, luts_d, cfg, hists_d), 3, 1)
         fit_ms = cuda_time_ms(lambda: turbo.kmeans_fit(xs_d, *fit_args), 3, 1)
         assign_ms = cuda_time_ms(lambda: turbo.assign_clusters(xs_d, cents_b),
                                  5, 1)
@@ -1684,8 +1679,8 @@ def forest_predict_phase(dev, stack0, forest, depth, main_labels0) -> dict:
     return launches
 
 
-def deep_forest_phase(dev, cfg, scenes_d, luts_d, params_d, hists_d,
-                      stack0, flush) -> dict:
+def deep_forest_phase(dev, cfg, scenes_d, luts_d, hists_d, stack0,
+                      flush) -> dict:
     """Phase 23: the source's forest at an ROI raster's scale (100 trees
     of unlimited depth fitted by the port's trainer on rule labels of
     ``DEEP_FOREST_SAMPLES`` pixels of scene 0's stack, an ROI raster's
@@ -1719,8 +1714,7 @@ def deep_forest_phase(dev, cfg, scenes_d, luts_d, params_d, hists_d,
 
     def deep_path():
         return turbo.classify_scenes_turbo(
-            scenes_d, luts_d, gf, cfg, stretch_params=params_d,
-            stretch_hists=hists_d, device=dev)
+            scenes_d, luts_d, gf, cfg, stretch_hists=hists_d, device=dev)
 
     maps, launches = counted(deep_path)
     check(launches["lut_hist"] == 1 and launches["forest_labels"] == 1
@@ -1729,7 +1723,7 @@ def deep_forest_phase(dev, cfg, scenes_d, luts_d, params_d, hists_d,
           f"the deep forest's batch launches lut_hist and forest_labels "
           f"once each: {launches}")
     stacks = turbo._stack_cm_from_parts(
-        *turbo._preamble(scenes_d, luts_d, params_d, hists_d), cfg)
+        *turbo._preamble(scenes_d, luts_d, hists_d), cfg)
     x_cm = stacks.reshape(BATCH, 19, HEIGHT * WIDTH)
     labels = kernels.forest_labels(gf, x_cm)
     fields = fields_of(flat)
@@ -1774,8 +1768,8 @@ def deep_forest_phase(dev, cfg, scenes_d, luts_d, params_d, hists_d,
     return out, gf
 
 
-def graph_phase(dev, cfg, scenes, luts, scenes_d, luts_d, params_d,
-                hists_d, forests) -> dict:
+def graph_phase(dev, cfg, scenes, luts, scenes_d, luts_d, hists_d,
+                forests) -> dict:
     """Phase 24: the supervised program's stack as CUDA graph replays
     (``pipeline.turbo._StackGraphs``) against the eager route, bit for bit,
     with each of ``forests`` (name -> GemmForest on the card): the batch
@@ -1789,8 +1783,8 @@ def graph_phase(dev, cfg, scenes, luts, scenes_d, luts_d, params_d,
     from rs_image_segmentation_tpu_torch.utils import timing
     from rs_image_segmentation_tpu_torch.utils.timing import span
 
-    def eager(gf, sd, ld, sp=None, hh=None):
-        return turbo._labels_eager(sd, ld, sp, hh, gf, cfg).reshape(
+    def eager(gf, sd, ld, hh=None):
+        return turbo._labels_eager(sd, ld, hh, gf, cfg).reshape(
             sd.shape[0], HEIGHT, WIDTH).to(torch.uint8)
 
     captures = turbo._StackGraphs.captures
@@ -1799,9 +1793,9 @@ def graph_phase(dev, cfg, scenes, luts, scenes_d, luts_d, params_d,
         calls = {
             "with the host histograms": (
                 lambda: turbo.classify_scenes_turbo(
-                    scenes_d, luts_d, gf, cfg, stretch_params=params_d,
-                    stretch_hists=hists_d, device=dev),
-                eager(gf, scenes_d, luts_d, params_d, hists_d)),
+                    scenes_d, luts_d, gf, cfg, stretch_hists=hists_d,
+                    device=dev),
+                eager(gf, scenes_d, luts_d, hists_d)),
             "numpy in, no histograms": (
                 lambda: turbo.classify_scenes_turbo(scenes, luts, gf, cfg,
                                                     device=dev),
@@ -1953,7 +1947,7 @@ def large_scene_phases(dev, cfg, scenes, luts, gf, gf_cpu, rows) -> dict:
     from rs_image_segmentation_tpu_torch.pipeline.evaluate import (
         ClassificationEvaluator)
     from rs_image_segmentation_tpu_torch.pipeline.preprocess import (
-        build_stretch_stats, stretch_stats_from_counts)
+        build_stretch_stats, stretch_tables_from_counts)
     from rs_image_segmentation_tpu_torch.utils.timing import cuda_time_ms
 
     torch.cuda.empty_cache()
@@ -1966,7 +1960,7 @@ def large_scene_phases(dev, cfg, scenes, luts, gf, gf_cpu, rows) -> dict:
     t0 = time.perf_counter()
     big = reflected_tiling(scenes[0], LARGE)
     big2 = reflected_tiling(scenes[1], LARGE)
-    lut_big, sp_big, hist_big = build_stretch_stats(big, gains, biases)
+    lut_big, _, hist_big = build_stretch_stats(big, gains, biases)
     lut_big = lut_big.astype(np.uint8)
     host_pre = stretch(big, lut_big)
     host_hists = ls.band_histograms_u8(host_pre)
@@ -2007,14 +2001,12 @@ def large_scene_phases(dev, cfg, scenes, luts, gf, gf_cpu, rows) -> dict:
     chunk, last = up.put(big[:, :tr]), up.put(big[:, last0:])
     big_d = up.put(big)
     lut_d = torch.from_numpy(lut_big).to(dev)
-    sp_d = torch.from_numpy(sp_big).to(dev)
     errs = {"lut_hist": 0.0, "forest_labels": 0.0}
     for label, x, kw in (
-            (f"chunk {tr} rows, sp+skip_hist", chunk,
-             dict(sp=sp_d, skip_hist=True)),
+            (f"chunk {tr} rows, skip_hist", chunk, dict(skip_hist=True)),
             (f"chunk {tr} rows, with its histogram", chunk, {}),
-            (f"last chunk {LARGE - last0} rows, sp+skip_hist", last,
-             dict(sp=sp_d, skip_hist=True)),
+            (f"last chunk {LARGE - last0} rows, skip_hist", last,
+             dict(skip_hist=True)),
             (f"the {LARGE}^2 scene, with its histogram", big_d, {})):
         got = kernels.lut_hist(x, lut_d, out_u8=True, **kw)
         ref = kernels.lut_hist_plain(x, lut_d, out_u8=True,
@@ -2059,11 +2051,11 @@ def large_scene_phases(dev, cfg, scenes, luts, gf, gf_cpu, rows) -> dict:
     torch.cuda.synchronize()
     check(torch.equal(counts_d, ref), f"raw_counts over the {len(chunks)} "
           f"chunks into one accumulator equals the scene's counts")
-    card_tables = stretch_stats_from_counts(counts_d.cpu().numpy(), gains,
-                                            biases)
+    card_tables = stretch_tables_from_counts(counts_d.cpu().numpy(), gains,
+                                             biases)
     check(all(np.array_equal(g, r) for g, r in zip(
-        card_tables, (lut_big, sp_big, hist_big))), "the tables derived "
-          "from the card's counts equal build_stretch_stats on the scene")
+        card_tables, (lut_big, hist_big))), "the tables derived from the "
+          "card's counts equal build_stretch_stats on the scene")
     print(f"check raw_counts over the scene's {len(chunks)} chunks: equal "
           f"to the scene's counts; tables from them equal "
           f"build_stretch_stats", flush=True)
@@ -2086,7 +2078,7 @@ def large_scene_phases(dev, cfg, scenes, luts, gf, gf_cpu, rows) -> dict:
               f"{tuple(x.shape)}: bit-equal")
     flush = l2_flusher(dev)
     chunk_nums = kernel_numbers(lambda: kernels.lut_hist(
-        chunk, lut_d, out_u8=True, sp=sp_d, skip_hist=True), flush)
+        chunk, lut_d, out_u8=True, skip_hist=True), flush)
     idx64 = chunk.reshape(BANDS, -1).long()
     gather_ms = cold_ms(lambda: torch.gather(lut_d, 1, idx64), flush)
     chunk_bytes = chunk.numel() * 2 + lut_d.numel()
@@ -2162,7 +2154,7 @@ def large_scene_phases(dev, cfg, scenes, luts, gf, gf_cpu, rows) -> dict:
         acc = torch.zeros((BANDS, 256), dtype=torch.int32, device=dev)
         for y in range(0, LARGE, tr):
             kernels.raw_counts(up.put(big2[:, y:y + tr]), acc)
-        return stretch_stats_from_counts(acc.cpu().numpy(), gains, biases)
+        return stretch_tables_from_counts(acc.cpu().numpy(), gains, biases)
 
     stats_s, _ = wall_s(route_stats, 3)
     res_s, res_runs = wall_s(lambda: resident(pre_big, hists_big))
@@ -2490,7 +2482,7 @@ def serving_phases(dev, cfg, scenes, flat_forest, depth, gf, stack0, smi,
                 stats_s.setdefault(label, {}).setdefault(
                     route.strip(), []).append(time.perf_counter() - t0)
                 if label == "batch":
-                    luts, params, hists = got
+                    luts, _, hists = got
         finally:
             native.hist_u8 = real
     stats_ms = min(stats_s["batch"]["native"]) * 1e3
@@ -2554,8 +2546,7 @@ def serving_phases(dev, cfg, scenes, flat_forest, depth, gf, stack0, smi,
     # ---- 19d. bucket padding, bit for bit against B = 1
     def direct(m, i, **kw):
         args = (scenes[i:i + 1], luts[i:i + 1])
-        sk = dict(stretch_params=params[i:i + 1],
-                  stretch_hists=hists[i:i + 1], device=dev)
+        sk = dict(stretch_hists=hists[i:i + 1], device=dev)
         if m == "random_forest":
             got = turbo.classify_scenes_turbo(*args, gf, cfg, **sk)
         elif m == "rule_based":
@@ -2597,8 +2588,8 @@ def serving_phases(dev, cfg, scenes, flat_forest, depth, gf, stack0, smi,
            if not np.array_equal(eight[i], direct("kmeans", i))]
     check(not bad, f"KMeans per-scene fits equal the direct program at "
           f"B = 1: differ {bad}")
-    sk = dict(stretch_params=params, stretch_hists=hists, shared_fit=True,
-              return_cents=True, device=dev)
+    sk = dict(stretch_hists=hists, shared_fit=True, return_cents=True,
+              device=dev)
     kargs = (scenes, luts, KMEANS_K, cfg, KMEANS_SEED, KMEANS_STRIDE)
     with InferenceEngine(cfg=cfg, method="kmeans", device=dev,
                          engine_cfg=EngineConfig(kmeans_shared_fit=True)
@@ -2661,8 +2652,7 @@ def serving_phases(dev, cfg, scenes, flat_forest, depth, gf, stack0, smi,
     for i in range(2):
         want = turbo.classify_scenes_turbo(
             scenes[i:i + 1], luts[i:i + 1], deep_d, cfg,
-            stretch_params=params[i:i + 1], stretch_hists=hists[i:i + 1],
-            device=dev)[0].cpu().numpy()
+            stretch_hists=hists[i:i + 1], device=dev)[0].cpu().numpy()
         st = turbo.hierarchical_stack_turbo_cm(scenes_d[i], luts_d[i], cfg,
                                                device=dev)
         walked = walk_labels(deep_fields, st.reshape(19, -1).T).reshape(
@@ -2751,19 +2741,16 @@ def serving_phases(dev, cfg, scenes, flat_forest, depth, gf, stack0, smi,
 
     # ---- 19j. latency of 8 concurrent requests, engine against direct
     direct_ms = {}
-    sp_d = torch.from_numpy(params).to(dev)
     hh_d = torch.from_numpy(hists).to(dev)
     programs = {
         "random_forest": lambda: turbo.classify_scenes_turbo(
-            scenes_d, luts_d, gf, cfg, stretch_params=sp_d,
-            stretch_hists=hh_d, device=dev),
+            scenes_d, luts_d, gf, cfg, stretch_hists=hh_d, device=dev),
         "rule_based": lambda: turbo.rule_based_scenes_turbo_batch(
-            scenes_d, luts_d, cfg, stretch_params=sp_d, stretch_hists=hh_d,
-            device=dev),
+            scenes_d, luts_d, cfg, stretch_hists=hh_d, device=dev),
         "kmeans": lambda: [turbo.kmeans_scenes_turbo_batch(
             scenes_d[i:i + 1], luts_d[i:i + 1], KMEANS_K, cfg, KMEANS_SEED,
-            KMEANS_STRIDE, stretch_params=sp_d[i:i + 1],
-            stretch_hists=hh_d[i:i + 1], device=dev) for i in range(BATCH)]}
+            KMEANS_STRIDE, stretch_hists=hh_d[i:i + 1], device=dev)
+            for i in range(BATCH)]}
     lat_out = {}
     for m in SERVING_METHODS:
         lat, walls, sizes = concurrent_latency(eng, list(scenes), m)
@@ -3167,12 +3154,11 @@ def tools_cli_phase(dev, cfg, scenes, flat_forest, depth, gf, stack0, smi,
 
     def direct_b1(scene, forest=gf):
         """The supervised program on one scene at B = 1 with the serving
-        engine's host inputs (params and host histogram)."""
-        lut, sp, hist = build_stretch_stats(scene, cal.gains, cal.biases)
+        engine's host inputs (the LUT and the host histogram)."""
+        lut, _, hist = build_stretch_stats(scene, cal.gains, cal.biases)
         return turbo.classify_scenes_turbo(
             scene[None], lut[None].astype(np.uint8), forest, cfg,
-            stretch_params=sp[None], stretch_hists=hist[None],
-            device=dev)[0].cpu().numpy()
+            stretch_hists=hist[None], device=dev)[0].cpu().numpy()
 
     try:
         # ---- 21a. run_batch_workflow, turbo branch: ten GeoTIFFs
@@ -4147,17 +4133,12 @@ def main() -> int:
     t0 = time.perf_counter()
     scenes = synthetic_scenes(BATCH, HEIGHT, WIDTH, seed=SEED)
     t1 = time.perf_counter()
-    luts, params, hists = stretch_stats_batch(scenes)
+    luts, _, hists = stretch_stats_batch(scenes)
     stats_ms = (time.perf_counter() - t1) * 1e3
-    modes = params[:, :, 0]
-    check(bool((modes == 0).any(axis=1).all() and (modes == 1).any(axis=1)
-               .all()), f"every scene mixes mode-0 and mode-1 bands: {modes}")
     print(f"data: {scenes.shape} uint8 in {time.perf_counter() - t0:.2f} s, "
-          f"host stretch stats {stats_ms:.1f} ms per batch; "
-          f"stretch modes per band of scene 0: {modes[0].tolist()}")
+          f"host stretch stats {stats_ms:.1f} ms per batch")
     scenes_d = torch.from_numpy(scenes).to(dev)
     luts_d = torch.from_numpy(luts).to(dev)
-    params_d = torch.from_numpy(params).to(dev)
     hists_d = torch.from_numpy(hists).to(dev)
 
     # ---- 3. forest
@@ -4184,7 +4165,6 @@ def main() -> int:
                                            dtype=np.uint8)).to(dev)
     ragged_lut = torch.from_numpy(rng.integers(0, 256, (BANDS, 256),
                                                dtype=np.uint8)).to(dev)
-    ragged_sp = torch.zeros((BANDS, 3), dtype=torch.int32, device=dev)
     # scene 0 in views whose bases sit 1 and 4 bytes past an aligned one
     views = {}
     for off in (1, 4):
@@ -4193,18 +4173,17 @@ def main() -> int:
         views[off] = buf[off:off + scenes_d[0].numel()].view(
             scenes_d[0].shape)
         views[off].copy_(scenes_d[0])
-    lut_cases = {"the batch": (scenes_d, luts_d, params_d),
-                 "scene 0": (scenes_d[0], luts_d[0], params_d[0]),
-                 "601 x 599 (planes of n % 4 == 3)": (ragged, ragged_lut,
-                                                      ragged_sp),
+    lut_cases = {"the batch": (scenes_d, luts_d),
+                 "scene 0": (scenes_d[0], luts_d[0]),
+                 "601 x 599 (planes of n % 4 == 3)": (ragged, ragged_lut),
                  "scene 0 at a base 1 byte past alignment": (
-                     views[1], luts_d[0], params_d[0]),
+                     views[1], luts_d[0]),
                  "scene 0 at a base 4 bytes past alignment": (
-                     views[4], luts_d[0], params_d[0])}
+                     views[4], luts_d[0])}
     units = {}
-    for where, (sc, lt, sp) in lut_cases.items():
-        for label, kw in (("sp+skip_hist", dict(sp=sp, skip_hist=True)),
-                          ("sp+hist", dict(sp=sp)),
+    for where, (sc, lt) in lut_cases.items():
+        for label, kw in (("skip_hist", dict(skip_hist=True)),
+                          ("hist", {}),
                           ("table+out_u8", dict(out_u8=True))):
             got = kernels.lut_hist(sc, lt, **kw)
             ref = kernels.lut_hist_plain(sc, lt,
@@ -4226,9 +4205,9 @@ def main() -> int:
                 sc.shape[-1] * sc.shape[-2], unit, "skip_hist" in kw)
             print(f"check lut_hist [{label}] [{where}] at {tuple(sc.shape)}"
                   f": bit-equal, {unit} pixels a unit, {instance} instance")
-    check(units[("scene 0 at a base 1 byte past alignment", "sp+hist")] == 1
+    check(units[("scene 0 at a base 1 byte past alignment", "hist")] == 1
           and units[("scene 0 at a base 4 bytes past alignment",
-                     "sp+hist")] == 4
+                     "hist")] == 4
           and units[("the batch", "table+out_u8")] == 16,
           f"lut_hist units by alignment: {units}")
 
@@ -4273,8 +4252,7 @@ def main() -> int:
     # ---- 5. the main path
     def main_path():
         return turbo.classify_scenes_turbo(
-            scenes_d, luts_d, gf, cfg, stretch_params=params_d,
-            stretch_hists=hists_d, device=dev)
+            scenes_d, luts_d, gf, cfg, stretch_hists=hists_d, device=dev)
 
     labels, launches = counted(main_path)
     check(launches["lut_hist"] > 0 and launches["forest_labels"] > 0
@@ -4302,7 +4280,6 @@ def main() -> int:
           f"(inputs resident on the card; runs {[round(w, 3) for w in walls]})")
     t0 = time.perf_counter()
     cpu0 = turbo.classify_scenes_turbo(scenes[:1], luts[:1], gf_cpu, cfg,
-                                       stretch_params=params[:1],
                                        stretch_hists=hists[:1], device="cpu")
     agreement = float((cpu0[0] == labels[0].cpu()).double().mean())
     check(agreement >= 0.999, f"card vs CPU agreement {agreement}")
@@ -4316,7 +4293,7 @@ def main() -> int:
     lut_plain_ms = cuda_time_ms(lambda: kernels.lut_hist_plain(
         scenes_d, luts_d, skip_hist=True), 10)
     lut_ms = cuda_time_ms(lambda: kernels.lut_hist(
-        scenes_d, luts_d, sp=params_d, skip_hist=True), 50)
+        scenes_d, luts_d, skip_hist=True), 50)
     lut_f32 = luts_d.reshape(planes, 256).float()
     idx64 = scenes_d.reshape(planes, n).long()
     lut_lib_ms = cuda_time_ms(lambda: torch.gather(lut_f32, 1, idx64), 20)
@@ -4327,11 +4304,11 @@ def main() -> int:
     # cold L2 and alone in a trace, rows 1 and 2
     flush = l2_flusher(dev)
     lut_nums = kernel_numbers(lambda: kernels.lut_hist(
-        scenes_d, luts_d, sp=params_d, skip_hist=True), flush)
+        scenes_d, luts_d, skip_hist=True), flush)
     lut_launch = launch_numbers(lambda: kernels.lut_hist(
-        scenes_d, luts_d, sp=params_d, skip_hist=True))
+        scenes_d, luts_d, skip_hist=True))
     lut_hist_launch = launch_numbers(lambda: kernels.lut_hist(
-        scenes_d[0], luts_d[0], sp=params_d[0]))
+        scenes_d[0], luts_d[0]))
     check(len(lut_launch["kernels_a_call_launches"]) == 1
           and "lut_hist_kernel" in lut_launch["kernels_a_call_launches"][0]
           and not lut_launch["htod_memcpy"],
@@ -4355,7 +4332,7 @@ def main() -> int:
           f"{forest_nums['cold_ms']:.4f} / {forest_nums['alone_ms']}; large "
           f"forest ({big_leaves} leaves) {big_nums['ms']:.4f} / "
           f"{big_nums['cold_ms']:.4f} / {big_nums['alone_ms']}")
-    parts = turbo._preamble(scenes_d, luts_d, params_d, hists_d)
+    parts = turbo._preamble(scenes_d, luts_d, hists_d)
     stack_ms = cuda_time_ms(lambda: turbo._stack_cm_from_parts(*parts, cfg),
                             5, 1)
     print(f"stages, device ms per batch: preamble {lut_ms:.4f}, "
@@ -4395,18 +4372,17 @@ def main() -> int:
             **extra})
 
     rows[1]["deep_forest"], gf_deep = deep_forest_phase(
-        dev, cfg, scenes_d, luts_d, params_d, hists_d, stack0, flush)
+        dev, cfg, scenes_d, luts_d, hists_d, stack0, flush)
     rows[0]["stack_graphs"] = graph_phase(
-        dev, cfg, scenes, luts, scenes_d, luts_d, params_d, hists_d,
+        dev, cfg, scenes, luts, scenes_d, luts_d, hists_d,
         {"path's": gf, "deep": gf_deep})
-    rows += rule_phases(dev, cfg, scenes, luts, params, hists, scenes_d,
-                        luts_d, params_d, hists_d, rows[0])
+    rows += rule_phases(dev, cfg, scenes, luts, hists, scenes_d, luts_d,
+                        hists_d, rows[0])
     rows.append(single_scene_phases(dev, cfg, scenes, luts, scenes_d,
                                     luts_d))
     rows += stage_phases(dev, cfg, scenes, luts, scenes_d, luts_d)
     rows[0]["kmeans_launches"] = kmeans_phases(
-        dev, cfg, scenes, luts, params, hists, scenes_d, luts_d, params_d,
-        hists_d)
+        dev, cfg, scenes, luts, hists, scenes_d, luts_d, hists_d)
     rows[1]["forest_predict_launches"] = forest_predict_phase(
         dev, stack0, flat_forest, depth, labels[0])
     large = large_scene_phases(dev, cfg, scenes, luts, gf, gf_cpu, rows)

@@ -5,6 +5,8 @@
 //
 // Replaces: rs_image_segmentation_tpu/ops/pallas_kernels.py
 //   lut_hist_pallas (kernel bodies _lut_hist_kernel, _lut_hist_mixed_kernel).
+//   The mixed body's fixed-point arithmetic spared the TPU a gather; here
+//   every band is served from the table, one shared-memory load a lookup.
 //
 // What bounds it on an H100: bytes. It reads each scene byte once and
 // writes one f32 (or u8) per byte, with a handful of integer ops per
@@ -50,11 +52,6 @@
 //     zeroed (planes, 256) output with one global atomic, and bytes of
 //     straddling words add into it directly. Integer sums are exact in any
 //     order. ops/kernels.py::lut_hist_instance picks the instance.
-//   * Every band is served from the table. The fixed-point params `sp`
-//     (build_stretch_params, mode 1) are only shape-checked by the
-//     wrapper: build_stretch_params guarantees mode-1 arithmetic equals
-//     lut[dn] for every DN present in the scene, so the output is
-//     bit-equal either way.
 
 #include <cooperative_groups.h>
 #include <cstdint>

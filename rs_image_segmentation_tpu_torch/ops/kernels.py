@@ -177,18 +177,15 @@ def lut_hist_instance(planes: int, n: int, unit: int, skip_hist: bool
 
 
 def lut_hist(scene_u8: torch.Tensor, lut_u8: torch.Tensor,
-             out_u8: bool = False, sp: "torch.Tensor | None" = None,
-             skip_hist: bool = False, out: "torch.Tensor | None" = None,
+             out_u8: bool = False, skip_hist: bool = False,
+             out: "torch.Tensor | None" = None,
              hist_out: "torch.Tensor | None" = None):
     """``(..., C, H, W)`` uint8 scene + ``(..., C, 256)`` uint8 LUT ->
     (stretched scene holding exact uint8 levels, f32 or uint8 with
     ``out_u8``; stretched-value histogram ``(..., C, 256)`` int32).
 
-    ``sp``: ``(..., C, 3 + 2K)`` int32 fixed-point params from
-    ``build_stretch_params``. Their mode-1 arithmetic equals the table for
-    every DN in the scene, so both versions serve every band from the
-    table and only check ``sp``'s shape. ``skip_hist=True`` (requires
-    ``sp``, as in the JAX package) returns the stretched scene only.
+    Every band is served from the table. ``skip_hist=True`` returns the
+    stretched scene only, for a caller that holds the histogram.
     ``out`` and ``hist_out``: optional contiguous tensors of the results'
     shapes and dtypes on the scene's device, written and returned in place
     of new ones (``hist_out`` not with ``skip_hist``)."""
@@ -197,13 +194,6 @@ def lut_hist(scene_u8: torch.Tensor, lut_u8: torch.Tensor,
     _require(lut_u8.dtype == torch.uint8
              and tuple(lut_u8.shape) == (*scene_u8.shape[:-2], 256),
              "lut_u8 must be uint8 of shape (..., C, 256)")
-    if sp is not None:
-        _require(sp.dtype == torch.int32
-                 and tuple(sp.shape[:-1]) == tuple(scene_u8.shape[:-2])
-                 and sp.shape[-1] >= 3 and sp.shape[-1] % 2 == 1,
-                 "sp must be int32 of shape (..., C, 3 + 2K)")
-    elif skip_hist:
-        raise ValueError("skip_hist requires sp (the mixed kernel)")
     dev = scene_u8.device
     hist_shape = (*scene_u8.shape[:-2], 256)
     for t, shape, dtype in ((out, scene_u8.shape,

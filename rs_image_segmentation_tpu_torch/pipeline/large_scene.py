@@ -63,7 +63,7 @@ from ..ops.texture import _extract_windows, glcm_matrices, glcm_properties
 from ..utils.timing import span
 from .classify import (bare_rule_mask, paint_rule_masks, rule_based_classify,
                        rule_mask)
-from .preprocess import build_stretch_lut, stretch_stats_from_counts
+from .preprocess import build_stretch_lut, stretch_tables_from_counts
 from .turbo import rule_indices
 
 
@@ -671,11 +671,11 @@ def classify_large_scene_streamed(
         stream (``io.stream.HostToDevice``), each counted on the device as
         it lands (``ops.kernels.raw_counts``, one accumulator for the
         scene); the host fetches the (7, 256) raw-DN counts once and
-        derives every stretch table from them
-        (``stretch_stats_from_counts``: the LUT, the fixed-point params and
-        the stretched histogram, bit-equal to ``build_stretch_stats``);
+        derives the LUT and the stretched histogram from them
+        (``stretch_tables_from_counts``, bit-equal to
+        ``build_stretch_stats``'s);
       * each resident raw chunk is stretched by ``ops.kernels.lut_hist``
-        (uint8 out, with the stretch params, no histogram) and freed, and
+        (uint8 out, no histogram) and freed, and
         the merged pass-B/C program runs one chunk behind, with no host
         sync until pass B/C drains;
       * pass D classifies from the stretched chunks left on the device
@@ -708,10 +708,9 @@ def classify_large_scene_streamed(
                     raw_counts(raw[i], counts_d)
             with span("large.fetch", bytes=counts_d.nbytes):
                 counts = counts_d.cpu().numpy()
-            lut, sp, hists = stretch_stats_from_counts(counts, cal.gains,
-                                                       cal.biases)
+            lut, hists = stretch_tables_from_counts(counts, cal.gains,
+                                                    cal.biases)
             lut_d = torch.from_numpy(lut.astype(np.uint8)).to(dev)
-            sp_d = torch.from_numpy(sp).to(dev)
             acc = _PassBC(compute_global_stats(arr, cfg,
                                                hists=hists.astype(np.int64)),
                           cfg, h, w, dev)
@@ -738,7 +737,7 @@ def classify_large_scene_streamed(
 
         with span("large.pass_bc"):
             for i in range(n_chunks):
-                st.append(lut_hist(raw.pop(i), lut_d, out_u8=True, sp=sp_d,
+                st.append(lut_hist(raw.pop(i), lut_d, out_u8=True,
                                    skip_hist=True))
                 if i >= 1:
                     dispatch_bc(i - 1)

@@ -4,8 +4,11 @@ turbo preamble.
 
 Counterpart of ``rs_image_segmentation_tpu.pipeline.preprocess``, with the
 same numpy semantics for the host tables: an exact f64 per-DN
-calibrate+stretch LUT, int32 fixed-point per-band params, and the int32
-histogram of the stretched scene. The device routes:
+calibrate+stretch LUT and the int32 histogram of the stretched scene, the
+two tables the port's programs take (:func:`stretch_tables_from_counts`);
+the JAX package's int32 fixed-point per-band params are built only by its
+counterparts :func:`build_stretch_params` and :func:`build_stretch_stats`,
+which the parity tests hold bit-equal. The device routes:
 
 * ``preprocess_bands`` on a uint8 scene with the identity warp: the exact
   host LUT, applied on the device (bit-equal to the JAX package);
@@ -198,63 +201,81 @@ def build_stretch_params(arr_u8: np.ndarray, gains, biases):
     lut[dn]`` for every DN in the band's [min, max]; ``mode=0`` marks bands
     whose LUT the fixed point cannot reproduce within the fixup budget
     (full-range bands, near-constant bands). Unused fixup slots hold DN -1.
-    Valid only for the scene the params were built from."""
-    g = np.asarray(gains, np.float64)
-    b = np.asarray(biases, np.float64)
-    c = arr_u8.shape[0]
-    lut = np.zeros((c, 256), np.float32)
-    params = np.zeros((c, 3 + 2 * STRETCH_FIXUPS), np.int32)
-    for i in range(c):
-        vmin, vmax = int(arr_u8[i].min()), int(arr_u8[i].max())
-        lut[i] = _band_lut(g[i], b[i], vmin, vmax)
-        params[i] = _band_params(lut[i], g[i], b[i], vmin, vmax)
+    Valid only for the scene the params were built from. The JAX
+    package's counterpart: no program of the port reads the params."""
+    lut, params, _ = build_stretch_stats(arr_u8, gains, biases)
     return lut, params
 
 
-def stretch_stats_from_counts(counts: np.ndarray, gains, biases):
-    """``(lut, params, hist_stretched)`` of a scene from its ``(C, 256)``
-    raw-DN counts alone, bit-equal to :func:`build_stretch_stats` on the
-    scene: a band's min and max DN are its first and last non-empty bins,
-    and the stretched histogram is the counts pushed through the LUT (DNs
-    outside [min, max] have zero counts, so their wrapped LUT entries add
-    nothing). O(C x 256) on the host, marked ``stretch.params``."""
+def _count_range(counts: np.ndarray, band: int) -> Tuple[int, int]:
+    """A band's min and max DN: its first and last non-empty bins."""
+    present = np.flatnonzero(counts)
+    if not present.size:
+        raise ValueError(f"band {band} has no pixels")
+    return int(present[0]), int(present[-1])
+
+
+def stretch_tables_from_counts(counts: np.ndarray, gains, biases):
+    """``(lut, hist_stretched)`` of a scene from its ``(C, 256)`` raw-DN
+    counts alone, the tables the port's programs take, bit-equal to
+    :func:`build_stretch_stats`'s: the LUT from each band's min and max DN
+    (:func:`_count_range`), and the stretched histogram as the counts
+    pushed through the LUT (DNs outside [min, max] have zero counts, so
+    their wrapped LUT entries add nothing). O(C x 256) on the host, marked
+    ``stretch.params``."""
     counts = np.asarray(counts, np.int64)
     g = np.asarray(gains, np.float64)
     b = np.asarray(biases, np.float64)
     c = counts.shape[0]
     lut = np.zeros((c, 256), np.float32)
-    params = np.zeros((c, 3 + 2 * STRETCH_FIXUPS), np.int32)
     hist = np.zeros((c, 256), np.int64)
     with span("stretch.params"):
         for i in range(c):
-            present = np.flatnonzero(counts[i])
-            if not present.size:
-                raise ValueError(f"band {i} has no pixels")
-            vmin, vmax = int(present[0]), int(present[-1])
-            lut[i] = _band_lut(g[i], b[i], vmin, vmax)
-            params[i] = _band_params(lut[i], g[i], b[i], vmin, vmax)
+            lut[i] = _band_lut(g[i], b[i], *_count_range(counts[i], i))
             np.add.at(hist[i], lut[i].astype(np.int64), counts[i])
-    return lut, params, hist.astype(np.int32)
+    return lut, hist.astype(np.int32)
 
 
-def build_stretch_stats(arr_u8: np.ndarray, gains, biases):
-    """``(lut, params, hist_stretched)``: :func:`build_stretch_params` plus
-    the exact (C, 256) int32 histogram of the stretched scene — the raw-DN
-    bincount pushed through the LUT (the LUT is a per-DN function, so this
-    equals histogramming the stretched image). Each band is counted once,
-    by ``io.native.hist_u8`` (the C++ codec library), or by
-    ``np.bincount`` where that library cannot be built (``stretch.hist``),
-    and every table comes from the counts
-    (:func:`stretch_stats_from_counts`, ``stretch.params``)."""
-    c = arr_u8.shape[0]
-    counts = np.zeros((c, 256), np.int64)
+def stretch_stats_from_counts(counts: np.ndarray, gains, biases):
+    """``(lut, params, hist_stretched)``: :func:`stretch_tables_from_counts`
+    plus the JAX package's fixed-point params of each band
+    (:func:`_band_params`), also marked ``stretch.params``."""
+    lut, hist = stretch_tables_from_counts(counts, gains, biases)
+    g = np.asarray(gains, np.float64)
+    b = np.asarray(biases, np.float64)
+    params = np.zeros((lut.shape[0], 3 + 2 * STRETCH_FIXUPS), np.int32)
+    with span("stretch.params"):
+        for i in range(lut.shape[0]):
+            params[i] = _band_params(lut[i], g[i], b[i],
+                                     *_count_range(counts[i], i))
+    return lut, params, hist
+
+
+def band_counts(arr_u8: np.ndarray) -> np.ndarray:
+    """``(C, 256)`` int64 raw-DN counts of a uint8 scene: one
+    ``io.native.hist_u8`` call a band (the C++ codec library), or
+    ``np.bincount`` where that library cannot be built. Marked
+    ``stretch.hist``."""
+    counts = np.zeros((arr_u8.shape[0], 256), np.int64)
     with span("stretch.hist"):
-        for i in range(c):
+        for i in range(arr_u8.shape[0]):
             hist_raw = _native.hist_u8(arr_u8[i])
             if hist_raw is None:
                 hist_raw = np.bincount(arr_u8[i].reshape(-1), minlength=256)
             counts[i] = hist_raw
-    return stretch_stats_from_counts(counts, gains, biases)
+    return counts
+
+
+def build_stretch_stats(arr_u8: np.ndarray, gains, biases):
+    """``(lut, params, hist_stretched)``: the exact stretch LUT, the JAX
+    package's fixed-point params (:func:`build_stretch_params`) and the
+    exact (C, 256) int32 histogram of the stretched scene — the raw-DN
+    bincount pushed through the LUT (the LUT is a per-DN function, so this
+    equals histogramming the stretched image). Each band is counted once
+    (:func:`band_counts`), and every table comes from the counts
+    (:func:`stretch_stats_from_counts`). The JAX package's signature: the
+    port's programs read the LUT and the histogram alone."""
+    return stretch_stats_from_counts(band_counts(arr_u8), gains, biases)
 
 
 def run_preprocessing_stage(input_path: str, output_path: str,

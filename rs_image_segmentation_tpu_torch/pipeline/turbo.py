@@ -85,18 +85,16 @@ def percentiles_from_counts(counts: torch.Tensor, values: torch.Tensor,
 # ------------------------------------------------------- feature stack
 
 def _preamble(scene_u8: torch.Tensor, stretch_lut_u8: torch.Tensor,
-              sp=None, hist=None, out=None, hist_out=None):
+              hist=None, out=None, hist_out=None):
     """Stretch LUT + histogram through kernel 1 (``ops.kernels.lut_hist``).
-    With both ``sp`` and a host-precomputed ``hist`` (build_stretch_stats,
-    exact) the kernel skips histogram accumulation. ``out`` and
-    ``hist_out``: optional tensors the stretched scene and its histogram
-    are written to (a given ``hist`` is copied into ``hist_out``)."""
-    if hist is not None and sp is not None:
-        st = lut_hist(scene_u8, stretch_lut_u8, sp=sp, skip_hist=True,
-                      out=out)
+    With a host histogram ``hist`` (exact int32 counts of the stretched
+    scene) the kernel skips its own count. ``out`` and ``hist_out``:
+    optional tensors the stretched scene and its histogram are written to
+    (a given ``hist`` is copied into ``hist_out``)."""
+    if hist is not None:
+        st = lut_hist(scene_u8, stretch_lut_u8, skip_hist=True, out=out)
         return st, (hist if hist_out is None else hist_out.copy_(hist))
-    return lut_hist(scene_u8, stretch_lut_u8, sp=sp, out=out,
-                    hist_out=hist_out)
+    return lut_hist(scene_u8, stretch_lut_u8, out=out, hist_out=hist_out)
 
 
 def _stack_front(stretched_f32: torch.Tensor, hist: torch.Tensor,
@@ -224,34 +222,30 @@ def hierarchical_stack_turbo_cm(scene_u8, stretch_lut_u8,
 
 # ---------------------------------------------------------- full program
 
-def _batch_inputs(scenes_u8, stretch_luts_u8, stretch_params, stretch_hists,
+def _batch_inputs(scenes_u8, stretch_luts_u8, stretch_hists,
                   device: DeviceLike):
-    """A program's inputs on its device: scenes, LUTs, and the optional
-    stretch params and host histograms (the histograms only with the
-    params, as the preamble uses them). Marked ``turbo.inputs``, with the
-    bytes copied from the host."""
+    """A program's inputs on its device: scenes, LUTs and the optional host
+    histograms. Marked ``turbo.inputs``, with the bytes copied from the
+    host."""
     dev = resolve_device(device)
     with span("turbo.inputs") as rec:
-        sp = (None if stretch_params is None
-              else as_tensor(stretch_params, dev, torch.int32))
-        hh = (None if stretch_hists is None or sp is None
+        hh = (None if stretch_hists is None
               else as_tensor(stretch_hists, dev, torch.int32))
         out = (as_tensor(scenes_u8, dev, torch.uint8),
-               as_tensor(stretch_luts_u8, dev, torch.uint8), sp, hh)
+               as_tensor(stretch_luts_u8, dev, torch.uint8), hh)
         if rec is not None:
-            given = (scenes_u8, stretch_luts_u8, stretch_params,
-                     stretch_hists)
+            given = (scenes_u8, stretch_luts_u8, stretch_hists)
             rec.counts["bytes"] = sum(
                 t.nbytes for g, t in zip(given, out) if t is not None
                 and not (isinstance(g, torch.Tensor) and g.device == dev))
     return out
 
 
-def _labels_eager(scenes: torch.Tensor, luts: torch.Tensor, sp, hh,
+def _labels_eager(scenes: torch.Tensor, luts: torch.Tensor, hh,
                   gf: GemmForest, cfg: FeatureStageConfig) -> torch.Tensor:
     """(B, H * W) int32 forest labels of a batch on its device, every
     operation launched from Python: the preamble, the stack, the forest."""
-    stacks = _stack_cm_from_parts(*_preamble(scenes, luts, sp, hh), cfg)
+    stacks = _stack_cm_from_parts(*_preamble(scenes, luts, hh), cfg)
     b, f, h, w = stacks.shape
     return forest_labels(gf, stacks.reshape(b, f, h * w))
 
@@ -302,7 +296,7 @@ class _StackGraphs:
             self.graphs = (graph_a, graph_b)
             _StackGraphs.captures += 1
 
-    def labels(self, scenes, luts, sp, hh, gf: GemmForest):
+    def labels(self, scenes, luts, hh, gf: GemmForest):
         """``(labels, replayed)``: the batch's (B, H * W) int32 forest
         labels, a new tensor, and whether the stack ran as replays."""
         with torch.cuda.device(self.dev), self.lock:
@@ -311,14 +305,13 @@ class _StackGraphs:
                 side = torch.cuda.Stream(self.dev)
                 side.wait_stream(stream)
                 with torch.cuda.stream(side):
-                    labels = _labels_eager(scenes, luts, sp, hh, gf,
-                                           self.cfg)
+                    labels = _labels_eager(scenes, luts, hh, gf, self.cfg)
                 stream.wait_stream(side)
                 labels.record_stream(stream)
                 self._capture(side)
                 return labels, False
             stream.wait_event(self.done)
-            _preamble(scenes, luts, sp, hh, out=self.stretched,
+            _preamble(scenes, luts, hh, out=self.stretched,
                       hist_out=self.hist)
             graph_a, graph_b = self.graphs
             graph_a.replay()
@@ -367,10 +360,11 @@ def classify_scenes_turbo(scenes_u8, stretch_luts_u8, gf: GemmForest,
     """(B, 7, H, W) raw uint8 scenes + (B, 7, 256) stretch LUTs -> (B, H, W)
     uint8 class maps on ``device`` (CUDA unless named): preamble, 19-channel
     stack and forest labels over the whole batch (one launch of each
-    kernel). ``stretch_params``: optional (B, 7, 3+2K) int32 fixed-point
-    stretch params (build_stretch_params). ``stretch_hists``: optional
-    (B, 7, 256) int32 host-precomputed stretched-value histograms
-    (build_stretch_stats); with both, the preamble skips its histogram.
+    kernel). ``stretch_hists``: optional (B, 7, 256) int32 host
+    stretched-value histograms (``stretch_tables_from_counts``); with
+    them the preamble skips its own count. ``stretch_params`` is accepted
+    for the JAX package's signature and not read: every band is served
+    from the LUT.
 
     On a CUDA device the stack replays the batch shape's captured graphs
     (:class:`_StackGraphs`; the first call of a shape runs eagerly and
@@ -379,17 +373,16 @@ def classify_scenes_turbo(scenes_u8, stretch_luts_u8, gf: GemmForest,
     each operation eagerly. The maps are a new tensor either way. Marked ``turbo.batch``, with count
     ``stack_graph``: 1 when the stack ran as replays, else 0."""
     with span("turbo.batch") as rec:
-        scenes, luts, sp, hh = _batch_inputs(scenes_u8, stretch_luts_u8,
-                                             stretch_params, stretch_hists,
-                                             device)
+        scenes, luts, hh = _batch_inputs(scenes_u8, stretch_luts_u8,
+                                         stretch_hists, device)
         b, _, h, w = scenes.shape
         graphs = (_stack_graphs(scenes.shape, cfg, scenes.device)
                   if scenes.device.type == "cuda" else None)
         if graphs is None:
-            labels, replayed = _labels_eager(scenes, luts, sp, hh, gf,
+            labels, replayed = _labels_eager(scenes, luts, hh, gf,
                                              cfg), False
         else:
-            labels, replayed = graphs.labels(scenes, luts, sp, hh, gf)
+            labels, replayed = graphs.labels(scenes, luts, hh, gf)
         if rec is not None:
             rec.counts["stack_graph"] = int(replayed)
         return labels.reshape(b, h, w).to(torch.uint8)
@@ -398,13 +391,13 @@ def classify_scenes_turbo(scenes_u8, stretch_luts_u8, gf: GemmForest,
 # ------------------------------------------------------- KMeans programs
 
 def kmeans_features(scenes_u8: torch.Tensor, stretch_luts_u8: torch.Tensor,
-                    cfg: FeatureStageConfig, sp=None, hist_in=None
+                    cfg: FeatureStageConfig, hist_in=None
                     ) -> torch.Tensor:
     """(B, 7, H, W) raw scenes -> (B, 19, H * W) stacks, each feature of
     each scene MinMax-scaled over its pixels (sklearn's MinMaxScaler; a
     constant feature to 0)."""
     stacks = _stack_cm_from_parts(*_preamble(scenes_u8, stretch_luts_u8,
-                                             sp, hist_in), cfg)
+                                             hist_in), cfg)
     b, f, h, w = stacks.shape
     return minmax_scale_features(stacks.reshape(b, f, h * w), dim=2)
 
@@ -468,11 +461,10 @@ def kmeans_scenes_turbo_batch(scenes_u8, stretch_luts_u8,
     :func:`classify_scenes_turbo`."""
     if init_cents is not None and not shared_fit:
         raise ValueError("init_cents warm start requires shared_fit=True")
-    scenes, luts, sp, hh = _batch_inputs(scenes_u8, stretch_luts_u8,
-                                         stretch_params, stretch_hists,
-                                         device)
+    scenes, luts, hh = _batch_inputs(scenes_u8, stretch_luts_u8,
+                                     stretch_hists, device)
     b, _, h, w = scenes.shape
-    xs_cm = kmeans_features(scenes, luts, cfg, sp, hh)
+    xs_cm = kmeans_features(scenes, luts, cfg, hh)
     cents, fit_cents, _ = kmeans_fit(xs_cm, n_clusters, seed, fit_stride,
                                      shared_fit, init_cents)
     maps = (assign_clusters(xs_cm, cents).reshape(b, h, w) + 1).to(
@@ -516,10 +508,9 @@ def rule_indices(stretched: torch.Tensor, hist: torch.Tensor,
 
 
 def _rule_front(scenes_u8: torch.Tensor, stretch_luts_u8: torch.Tensor,
-                cfg: FeatureStageConfig, sp=None, hist_in=None):
+                cfg: FeatureStageConfig, hist_in=None):
     """Preamble, then :func:`rule_indices`, of a (B, 7, H, W) batch."""
-    return rule_indices(*_preamble(scenes_u8, stretch_luts_u8, sp, hist_in),
-                        cfg)
+    return rule_indices(*_preamble(scenes_u8, stretch_luts_u8, hist_in), cfg)
 
 
 def _rule_first_stage(ndvi_b: torch.Tensor, ndwi_b: torch.Tensor,
@@ -574,10 +565,9 @@ def rule_based_scenes_turbo_batch(scenes_u8, stretch_luts_u8,
     dropped a large component; callers reroute those scenes to a path
     without the cap. Marked ``turbo.batch``."""
     with span("turbo.batch"):
-        scenes, luts, sp, hh = _batch_inputs(scenes_u8, stretch_luts_u8,
-                                             stretch_params, stretch_hists,
-                                             device)
-        out, overflow = _rule_labels(*_rule_front(scenes, luts, cfg, sp, hh),
+        scenes, luts, hh = _batch_inputs(scenes_u8, stretch_luts_u8,
+                                         stretch_hists, device)
+        out, overflow = _rule_labels(*_rule_front(scenes, luts, cfg, hh),
                                      rule_cfg if rule_cfg is not None
                                      else RuleBasedConfig())
     return (out, overflow) if return_overflow else out

@@ -59,7 +59,7 @@ from ..backend import DeviceLike, as_tensor, resolve_device
 from ..core.config import CalibrationConfig, FeatureStageConfig
 from ..models.forest import FlatForest, GemmForest, _gemm_for
 from ..pipeline import large_scene, turbo
-from ..pipeline.preprocess import build_stretch_stats
+from ..pipeline.preprocess import band_counts, stretch_tables_from_counts
 from ..utils.log import get_logger
 from ..utils.timing import span
 
@@ -520,16 +520,15 @@ class InferenceEngine:
             # to an unpadded run
             padded = list(scenes) + [scenes[-1]] * (b - n)
             batch = np.stack(padded)
-            # per-band fixed-point stretch routing and the host
-            # stretched-value histogram (the preamble then skips its own): all
-            # three batched programs take (stretch_params, stretch_hists)
+            # each scene's stretch LUT and its stretched-value histogram,
+            # from its raw counts: the preamble then skips its own count
             t_stats = time.perf_counter()
-            stats = [build_stretch_stats(s, self._gains, self._biases)
+            stats = [stretch_tables_from_counts(band_counts(s), self._gains,
+                                                self._biases)
                      for s in padded]
             t_stats = time.perf_counter() - t_stats
-            luts = np.stack([p[0] for p in stats]).astype(np.uint8)
-            sps = np.stack([p[1] for p in stats])
-            hists = np.stack([p[2] for p in stats])
+            luts, hists = (np.stack(p) for p in zip(*stats))
+            luts = luts.astype(np.uint8)
             with self._lock:
                 if record_stats:
                     self._stats["batches"] += 1
@@ -539,7 +538,7 @@ class InferenceEngine:
                     self._stats["host_stats_batches"] += 1
             dev = self._device
             inputs = (as_tensor(batch, dev), as_tensor(luts, dev),
-                      as_tensor(sps, dev), as_tensor(hists, dev))
+                      as_tensor(hists, dev))
             if method == "kmeans" and self._ecfg.kmeans_warm_start:
                 # shared-fit warm start: seed this batch's Lloyd loop from the
                 # last converged centroids for this scene shape (tiny K x F
@@ -583,7 +582,7 @@ class InferenceEngine:
                     # recompute them through the uncapped whole-image path.
                     # Inputs match exactly: the stretched scene is the LUT
                     # applied to the raw DNs and `hists` already holds the
-                    # stretched-value histograms (build_stretch_stats).
+                    # stretched-value histograms.
                     nb = luts.shape[1]
                     for i in np.nonzero(ov)[0]:
                         pre = luts[i][np.arange(nb)[:, None, None], padded[i]]
@@ -621,18 +620,17 @@ class InferenceEngine:
 
     def _build_program(self, method: str, warm: bool = False):
         """The batched program for ``method`` as a plain
-        (batch, luts, stretch_params, stretch_hists) callable on the
-        engine's device. Under ``kmeans_warm_start`` the kmeans program
-        also returns the converged centroids, and the ``warm`` variant
-        takes them as a fifth input."""
+        (batch, luts, stretch_hists) callable on the engine's device.
+        Under ``kmeans_warm_start`` the kmeans program also returns the
+        converged centroids, and the ``warm`` variant takes them as a
+        fourth input."""
         cfg, dev = self._cfg, self._device
         if method == "random_forest":
             gf = self._gf
 
-            def run(bd, ld, sd, hd):
+            def run(bd, ld, hd):
                 return turbo.classify_scenes_turbo(
-                    bd, ld, gf, cfg, stretch_params=sd, stretch_hists=hd,
-                    device=dev)
+                    bd, ld, gf, cfg, stretch_hists=hd, device=dev)
         elif method == "kmeans":
             k, seed = self._n_clusters, self._kmeans_seed
             stride = self._ecfg.kmeans_fit_stride
@@ -640,26 +638,25 @@ class InferenceEngine:
             track = self._ecfg.kmeans_warm_start
 
             if warm:
-                def run(bd, ld, sd, hd, prev):
+                def run(bd, ld, hd, prev):
                     return turbo.kmeans_scenes_turbo_batch(
                         bd, ld, n_clusters=k, cfg=cfg, seed=seed,
-                        fit_stride=stride, stretch_params=sd,
-                        stretch_hists=hd, shared_fit=shared,
-                        init_cents=prev, return_cents=True, device=dev)
+                        fit_stride=stride, stretch_hists=hd,
+                        shared_fit=shared, init_cents=prev,
+                        return_cents=True, device=dev)
             else:
-                def run(bd, ld, sd, hd):
+                def run(bd, ld, hd):
                     return turbo.kmeans_scenes_turbo_batch(
                         bd, ld, n_clusters=k, cfg=cfg, seed=seed,
-                        fit_stride=stride, stretch_params=sd,
-                        stretch_hists=hd, shared_fit=shared,
-                        return_cents=track, device=dev)
+                        fit_stride=stride, stretch_hists=hd,
+                        shared_fit=shared, return_cents=track, device=dev)
         else:
-            def run(bd, ld, sd, hd):
+            def run(bd, ld, hd):
                 # return_overflow: (maps, (B,) bool) — scenes whose
                 # min-area stage hit the 32768-id cap get rerouted to
                 # the uncapped path in _run_batch instead of silently
                 # returning a truncated label map
                 return turbo.rule_based_scenes_turbo_batch(
-                    bd, ld, cfg, stretch_params=sd, stretch_hists=hd,
-                    return_overflow=True, device=dev)
+                    bd, ld, cfg, stretch_hists=hd, return_overflow=True,
+                    device=dev)
         return run

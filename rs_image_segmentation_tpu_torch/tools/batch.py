@@ -10,8 +10,7 @@ branches:
   ``forest_labels`` per sub-batch. The host inputs are the exact stretch
   LUTs of ``pipeline.preprocess.build_stretch_lut``, as the JAX package
   builds them (the preamble then counts the stretched histogram on the
-  card; ``build_stretch_stats``'s params and host histogram, as serving
-  passes them, give the same maps).
+  card; a host histogram, as serving passes it, gives the same maps).
 * streamed: any other batch runs one scene at a time through
   ``preprocess_bands``, ``hierarchical_stack_fused`` and
   ``models.forest.forest_predict``, which takes ``forest_labels``.

@@ -8,8 +8,9 @@ Each band is a smoothed random field: a coarse field shared by all bands
 of a scene (so bands correlate, as land cover makes them), plus a finer
 field of the band's own, stretched to the band's DN range. Band
 ``FULL_RANGE_BAND`` spans exactly 0..255, so ``build_stretch_params``
-sends it to the table route (mode 0); the other bands span narrower
-ranges and take the fixed-point route (mode 1).
+gives it mode 0 (the JAX mixed kernel's table route); the other bands
+span narrower ranges and take mode 1 (its fixed-point route), so the
+parity tests cover both of the JAX kernel's routes.
 """
 
 from __future__ import annotations

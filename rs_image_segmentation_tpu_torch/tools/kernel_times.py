@@ -26,7 +26,7 @@ scenes of 7 x 600 x 600 from seed 0):
   = step = 21, four offsets), the batch's 8 texture bands, a flat band
   (every pair on one cell) and a band of uniform random levels (pairs
   spread over the cells);
-* ``lut_hist`` with ``sp``: the batch with ``skip_hist`` and f32 out (the
+* ``lut_hist``: the batch with ``skip_hist`` and f32 out (the
   supervised path's preamble), the batch with its histogram, scene 0 with
   its histogram (the single-scene rule path), and the batch with
   ``skip_hist`` and uint8 out;
@@ -259,7 +259,7 @@ def graph_cc_masks(run):
     return out, [(a[0], a[1] if len(a) > 1 else 8) for a in seen]
 
 
-def rule_hist_ids(scenes_d, luts_d, cfg, params_d, hists_d):
+def rule_hist_ids(scenes_d, luts_d, cfg, hists_d):
     """The id stacks the batched rule program hands to ``hist_dense``: its
     first-stage masks (3 per scene) and its bare-land masks (1 per scene),
     with the ``bins_hi`` of each call."""
@@ -267,8 +267,8 @@ def rule_hist_ids(scenes_d, luts_d, cfg, params_d, hists_d):
     from rs_image_segmentation_tpu_torch.pipeline import turbo
     _, calls = spied_calls(components, "hist_dense", lambda: (
         turbo.rule_based_scenes_turbo_batch(
-            scenes_d, luts_d, cfg, stretch_params=params_d,
-            stretch_hists=hists_d, device=scenes_d.device)))
+            scenes_d, luts_d, cfg, stretch_hists=hists_d,
+            device=scenes_d.device)))
     if len(calls) != 2:
         raise RuntimeError(f"the rule program counted {len(calls)} stacks")
     return calls
@@ -388,9 +388,9 @@ def measure(dev, which=KERNELS) -> dict:
 
     cfg = FeatureStageConfig()
     scenes = synthetic_scenes(BATCH, SIZE, SIZE, seed=SEED)
-    luts, params, hists = stretch_stats_batch(scenes)
-    scenes_d, luts_d, params_d, hists_d = (
-        torch.from_numpy(a).to(dev) for a in (scenes, luts, params, hists))
+    luts, _, hists = stretch_stats_batch(scenes)
+    scenes_d, luts_d, hists_d = (
+        torch.from_numpy(a).to(dev) for a in (scenes, luts, hists))
     flush = l2_flusher(dev)
     out = {}
 
@@ -416,7 +416,7 @@ def measure(dev, which=KERNELS) -> dict:
 
     if "ccmin_prop" in which:
         rc = RuleBasedConfig()
-        nd = turbo._rule_front(scenes_d, luts_d, cfg, params_d, hists_d)
+        nd = turbo._rule_front(scenes_d, luts_d, cfg, hists_d)
         stack3, _ = turbo._rule_first_stage(*nd, rc)
         fg3 = stack3 != 0
         seeds = components.run_rank_seeds(fg3)
@@ -444,7 +444,7 @@ def measure(dev, which=KERNELS) -> dict:
 
     if "hist_dense" in which:
         (ids3, hi3), (ids_bare, hi_bare) = rule_hist_ids(
-            scenes_d, luts_d, cfg, params_d, hists_d)
+            scenes_d, luts_d, cfg, hists_d)
         empty = torch.full_like(ids3, BINS)
         noise = torch.from_numpy(np.random.default_rng(SEED).integers(
             0, BINS, tuple(ids3.shape), dtype=np.int32)).to(dev)
@@ -488,13 +488,13 @@ def measure(dev, which=KERNELS) -> dict:
         planes, n = BATCH * scenes.shape[1], SIZE * SIZE
         for key, args, kw, n_planes in (
                 ("skip_hist, f32 out, the batch", (scenes_d, luts_d),
-                 dict(sp=params_d, skip_hist=True), planes),
+                 dict(skip_hist=True), planes),
                 ("histogram, f32 out, the batch", (scenes_d, luts_d),
-                 dict(sp=params_d), planes),
+                 dict(), planes),
                 ("histogram, f32 out, scene 0", (scenes_d[0], luts_d[0]),
-                 dict(sp=params_d[0]), planes // BATCH),
+                 dict(), planes // BATCH),
                 ("skip_hist, uint8 out, the batch", (scenes_d, luts_d),
-                 dict(sp=params_d, skip_hist=True, out_u8=True), planes)):
+                 dict(skip_hist=True, out_u8=True), planes)):
             res = kernel_numbers(lambda: kernels.lut_hist(*args, **kw), flush)
             res.update(launch_numbers(lambda: kernels.lut_hist(*args, **kw)))
             # each input byte read once, each output byte written once

@@ -101,19 +101,18 @@ def main(argv=None) -> int:
     dev = resolve_device(None)
     cfg = FeatureStageConfig()
     scenes = synthetic_scenes(BATCH, SIZE, SIZE, SEED)
-    scenes_d, luts_d, params_d, hists_d = (
-        torch.from_numpy(a).to(dev)
-        for a in (scenes, *stretch_stats_batch(scenes)))
+    luts, _, hists = stretch_stats_batch(scenes)
+    scenes_d, luts_d, hists_d = (torch.from_numpy(a).to(dev)
+                                 for a in (scenes, luts, hists))
     if path == "rule":
         def run():
             return rule_based_scenes_turbo_batch(
-                scenes_d, luts_d, cfg, stretch_params=params_d,
-                stretch_hists=hists_d, device=dev)
+                scenes_d, luts_d, cfg, stretch_hists=hists_d, device=dev)
     elif path == "kmeans":
         def run():
             return kmeans_scenes_turbo_batch(
                 scenes_d, luts_d, 7, cfg, fit_stride=8,
-                stretch_params=params_d, stretch_hists=hists_d, device=dev)
+                stretch_hists=hists_d, device=dev)
     else:
         stack0 = hierarchical_stack_turbo_cm(scenes_d[0], luts_d[0], cfg,
                                              device=dev).cpu().numpy()
@@ -122,7 +121,6 @@ def main(argv=None) -> int:
 
         def run():
             return classify_scenes_turbo(scenes_d, luts_d, gf, cfg,
-                                         stretch_params=params_d,
                                          stretch_hists=hists_d, device=dev)
 
     for _ in range(2):

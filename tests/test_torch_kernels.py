@@ -38,10 +38,12 @@ def test_wrappers_check_dtype_and_shape():
     with pytest.raises(ValueError, match="uint8"):
         kernels.lut_hist(torch.zeros((7, 8, 8)),
                          torch.zeros((7, 256), dtype=torch.uint8))
-    with pytest.raises(ValueError, match="sp must be"):
+    # one table serves every band: the JAX fixed-point params are no
+    # argument
+    with pytest.raises(TypeError, match="sp"):
         kernels.lut_hist(torch.zeros((7, 8, 8), dtype=torch.uint8),
                          torch.zeros((7, 256), dtype=torch.uint8),
-                         sp=torch.zeros((7, 4), dtype=torch.int32))
+                         sp=torch.zeros((7, 15), dtype=torch.int32))
     gf = _forest()
     with pytest.raises(ValueError, match="f32"):
         kernels.forest_labels(gf, torch.zeros((19, 16), dtype=torch.float64))

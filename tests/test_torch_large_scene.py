@@ -441,12 +441,13 @@ def test_entry_points_raise_without_cuda(scenes, forest, tmp_path, entry):
 
 def test_streamed_counts_every_chunk_once(scenes, forest, monkeypatch):
     """The streamed route counts each raw chunk once, into one
-    accumulator, and derives the tables ``build_stretch_stats`` gives."""
+    accumulator, and derives the LUT and histogram ``build_stretch_stats``
+    gives."""
     from rs_image_segmentation_tpu_torch.pipeline import preprocess as tpre
     raw = scenes["260x252"][0]
     calls, derived = [], []
     real_count = tlarge.raw_counts
-    real_derive = tlarge.stretch_stats_from_counts
+    real_derive = tlarge.stretch_tables_from_counts
 
     def count(chunk, acc):
         calls.append((tuple(chunk.shape), acc.data_ptr()))
@@ -457,14 +458,14 @@ def test_streamed_counts_every_chunk_once(scenes, forest, monkeypatch):
         return derived[-1]
 
     monkeypatch.setattr(tlarge, "raw_counts", count)
-    monkeypatch.setattr(tlarge, "stretch_stats_from_counts", derive)
+    monkeypatch.setattr(tlarge, "stretch_tables_from_counts", derive)
     tlarge.classify_large_scene_streamed(raw, forest[1], CAL, CFG,
                                          tile_rows=TILE, device="cpu")
     assert [s for s, _ in calls] == [(7, 63, 252)] * 4 + [(7, 8, 252)]
     assert len({p for _, p in calls}) == 1
-    want = tpre.build_stretch_stats(raw, CAL.gains, CAL.biases)
-    assert len(derived) == 1
-    for g, r in zip(derived[0], want):
+    lut, _, hist = tpre.build_stretch_stats(raw, CAL.gains, CAL.biases)
+    assert len(derived) == 1 and len(derived[0]) == 2
+    for g, r in zip(derived[0], (lut, hist)):
         assert g.dtype == r.dtype and np.array_equal(g, r)
 
 

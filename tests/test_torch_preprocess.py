@@ -62,32 +62,27 @@ def _lut_inputs(scene):
 def test_lut_hist_plain_matches_pallas_table_and_sp(out_u8):
     for scene in _scenes():
         lut, sp, hist = _lut_inputs(scene)
-        st_t, h_t = kernels.lut_hist(torch.from_numpy(scene),
-                                     torch.from_numpy(lut), out_u8=out_u8)
-        st_s, h_s = kernels.lut_hist(torch.from_numpy(scene),
-                                     torch.from_numpy(lut), out_u8=out_u8,
-                                     sp=torch.from_numpy(sp))
+        # the port's table alone against both of the JAX kernel's routes
+        st, h = kernels.lut_hist(torch.from_numpy(scene),
+                                 torch.from_numpy(lut), out_u8=out_u8)
         ref_st, ref_h = lut_hist_pallas(jnp.asarray(scene), jnp.asarray(lut),
                                         interpret=True, out_u8=out_u8)
         ref_sp, ref_hs = lut_hist_pallas(jnp.asarray(scene), jnp.asarray(lut),
                                          interpret=True, out_u8=out_u8,
                                          sp=jnp.asarray(sp))
-        for st, h in ((st_t, h_t), (st_s, h_s)):
-            assert st.dtype == (torch.uint8 if out_u8 else torch.float32)
-            assert np.array_equal(st.numpy(), np.asarray(ref_st))
-            assert np.array_equal(st.numpy(), np.asarray(ref_sp))
-            assert np.array_equal(h.numpy(), np.asarray(ref_h))
-            assert np.array_equal(h.numpy(), hist)
-        assert np.array_equal(h_t.numpy(), np.asarray(ref_hs))
+        assert st.dtype == (torch.uint8 if out_u8 else torch.float32)
+        assert np.array_equal(st.numpy(), np.asarray(ref_st))
+        assert np.array_equal(st.numpy(), np.asarray(ref_sp))
+        assert np.array_equal(h.numpy(), np.asarray(ref_h))
+        assert np.array_equal(h.numpy(), hist)
+        assert np.array_equal(h.numpy(), np.asarray(ref_hs))
 
 
 def test_lut_hist_plain_matches_pallas_skip_hist_batched():
     scenes = np.stack(_scenes()[:2])
     luts, sps = zip(*[_lut_inputs(s)[:2] for s in scenes])
     got = kernels.lut_hist(torch.from_numpy(scenes),
-                           torch.from_numpy(np.stack(luts)),
-                           sp=torch.from_numpy(np.stack(sps)),
-                           skip_hist=True)
+                           torch.from_numpy(np.stack(luts)), skip_hist=True)
     assert got.shape == scenes.shape
     for b in range(2):
         ref = lut_hist_pallas(jnp.asarray(scenes[b]), jnp.asarray(luts[b]),
@@ -105,9 +100,11 @@ def test_lut_hist_random_tables_and_argument_checks(rng):
                                     interpret=True)
     assert np.array_equal(st.numpy(), np.asarray(ref_st))
     assert np.array_equal(hist.numpy(), np.asarray(ref_h))
-    with pytest.raises(ValueError, match="skip_hist requires sp"):
-        kernels.lut_hist(torch.from_numpy(scene), torch.from_numpy(lut),
-                         skip_hist=True)
+    # skip_hist needs nothing else: the stretched scene alone
+    alone = kernels.lut_hist(torch.from_numpy(scene), torch.from_numpy(lut),
+                             skip_hist=True)
+    assert isinstance(alone, torch.Tensor)
+    assert np.array_equal(alone.numpy(), np.asarray(ref_st))
     with pytest.raises(ValueError, match="lut_u8"):
         kernels.lut_hist(torch.from_numpy(scene),
                          torch.from_numpy(lut[:2]))
@@ -168,6 +165,10 @@ def test_stretch_stats_from_counts_bit_equal_to_jax(name):
     got = tpre.stretch_stats_from_counts(counts, gains, biases)
     ref = jpre.build_stretch_stats(scene, gains, biases)
     for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and np.array_equal(g, r), name
+    # the one table pair the port's programs take
+    for g, r in zip(tpre.stretch_tables_from_counts(counts, gains, biases),
+                    (ref[0], ref[2])):
         assert g.dtype == r.dtype and np.array_equal(g, r), name
     # the port's host route derives from the same counts
     for g, r in zip(tpre.build_stretch_stats(scene, gains, biases), ref):

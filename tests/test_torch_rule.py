@@ -97,10 +97,11 @@ def test_rule_configs_match():
             == RuleBasedConfig().__dict__)
 
 
-@pytest.mark.parametrize("stats", ["none", "params", "params_and_hists"])
+@pytest.mark.parametrize("stats", ["none", "hists", "params_and_hists"])
 def test_rule_program_agrees_with_jax(batch, stats):
+    # host histograms alone skip the card's count; params are not read
     scenes, luts, params, hists, ref, ref_ov = batch
-    kw = {"none": {}, "params": dict(stretch_params=params),
+    kw = {"none": {}, "hists": dict(stretch_hists=hists),
           "params_and_hists": dict(stretch_params=params,
                                    stretch_hists=hists)}[stats]
     got, ov = tturbo.rule_based_scenes_turbo_batch(

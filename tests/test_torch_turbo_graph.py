@@ -122,18 +122,17 @@ def test_lut_hist_writes_into_given_tensors(kw):
                                           dtype=np.uint8))
     lut = torch.from_numpy(rng.integers(0, 256, (2, 7, 256),
                                         dtype=np.uint8))
-    sp = torch.zeros((2, 7, 3), dtype=torch.int32)
-    want = kernels.lut_hist(scene, lut, sp=sp, **kw)
+    want = kernels.lut_hist(scene, lut, **kw)
     want = want if isinstance(want, tuple) else (want,)
     dest = [torch.full_like(w, 7) for w in want]
-    got = kernels.lut_hist(scene, lut, sp=sp, out=dest[0],
+    got = kernels.lut_hist(scene, lut, out=dest[0],
                            hist_out=None if kw.get("skip_hist") else dest[1],
                            **kw)
     got = got if isinstance(got, tuple) else (got,)
     for g, d, w in zip(got, dest, want):
         assert g is d and torch.equal(g, w)
     with pytest.raises(ValueError):
-        kernels.lut_hist(scene, lut, sp=sp, out=dest[0][:1], **kw)
+        kernels.lut_hist(scene, lut, out=dest[0][:1], **kw)
 
 
 # ------------------------------------------------------- the CPU route
@@ -168,7 +167,7 @@ def test_a_cpu_call_builds_no_graph(cpu_batch):
     assert root.counts == {"stack_graph": 0}
     assert not [r for r in recs if r.name == "turbo.capture"]
     eager = turbo._labels_eager(torch.from_numpy(scenes),
-                                torch.from_numpy(luts), None, None, gf, SMALL)
+                                torch.from_numpy(luts), None, gf, SMALL)
     assert maps.dtype == torch.uint8
     assert torch.equal(maps, eager.reshape(maps.shape).to(torch.uint8))
 
@@ -225,11 +224,11 @@ def card():
 
 @pytest.fixture(scope="module")
 def tiles():
-    """Sixteen raw 7 x 600 x 600 tiles with their LUTs, fixed-point
-    params and histograms (host numpy)."""
+    """Sixteen raw 7 x 600 x 600 tiles with their LUTs and histograms
+    (host numpy)."""
     scenes = synthetic_scenes(16, H, W, seed=21)
-    luts, params, hists = stretch_stats_batch(scenes)
-    return scenes, luts.astype(np.uint8), params, hists
+    luts, _, hists = stretch_stats_batch(scenes)
+    return scenes, luts.astype(np.uint8), hists
 
 
 @pytest.fixture(scope="module")
@@ -253,15 +252,14 @@ def forests(tiles):
 def _eager(card, gf, scenes, luts):
     """The batch's maps with every operation launched from Python."""
     labels = turbo._labels_eager(torch.from_numpy(scenes).to(card),
-                                 torch.from_numpy(luts).to(card), None, None,
-                                 gf, FeatureStageConfig())
+                                 torch.from_numpy(luts).to(card), None, gf,
+                                 FeatureStageConfig())
     return labels.reshape(len(scenes), H, W).to(torch.uint8)
 
 
-def _graphed(card, gf, scenes, luts, params=None, hists=None):
-    return turbo.classify_scenes_turbo(scenes, luts, gf,
-                                       stretch_params=params,
-                                       stretch_hists=hists, device=card)
+def _graphed(card, gf, scenes, luts, hists=None):
+    return turbo.classify_scenes_turbo(scenes, luts, gf, stretch_hists=hists,
+                                       device=card)
 
 
 @pytest.mark.card
@@ -269,12 +267,12 @@ def _graphed(card, gf, scenes, luts, params=None, hists=None):
 @pytest.mark.parametrize("b", [1, 3, 8])
 def test_graphed_maps_bit_equal_to_the_eager_route(card, tiles, forests,
                                                    forest, b):
-    scenes, luts, params, hists = (a[:b] for a in tiles)
+    scenes, luts, hists = (a[:b] for a in tiles)
     gf = forests[forest]
     want = _eager(card, gf, scenes, luts)
     # the first call of a shape captures; the next ones replay, with the
     # host histograms (the serving engine's call) and without
-    for kw in ({}, {"params": params, "hists": hists}, {}):
+    for kw in ({}, {"hists": hists}, {}):
         got = _graphed(card, gf, scenes, luts, **kw)
         assert got.shape == (b, H, W) and got.dtype == torch.uint8
         assert torch.equal(got, want)
