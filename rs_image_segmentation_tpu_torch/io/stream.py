@@ -3,10 +3,11 @@
 Counterpart of ``rs_image_segmentation_tpu.io.stream``. For scenes larger
 than device memory (or multi-scene batches), tiles are cut on the host and
 shipped to the device while the previous tile computes. On a CUDA device
-each tile goes through :class:`HostToDevice`: a pinned staging buffer, an
-asynchronous copy on a side stream, and an event that the compute stream
-waits on, so the copy of tile i + 1 overlaps the kernels of tile i. On the
-CPU the same calls are a plain loop.
+each tile goes through :class:`HostToDevice`: one host copy of the array,
+strided or not, into a pinned staging buffer, an asynchronous copy on a
+side stream, and an event that the compute stream waits on, so the copy of
+tile i + 1 overlaps the kernels of tile i. On the CPU the same calls are a
+plain loop.
 """
 
 from __future__ import annotations
@@ -65,48 +66,63 @@ def read_tile(arr: np.ndarray, spec: TileSpec,
 class HostToDevice:
     """Copies numpy arrays to ``device`` ahead of the compute stream.
 
-    On CUDA, each :meth:`put` stages the array in one of ``depth`` pinned
-    host buffers, taken in turn, and copies it on a side stream into a
-    tensor allocated there; the caller's current stream waits on the
-    copy's event, so work enqueued after ``put`` sees the data and the
-    host never blocks on the copy. A staging buffer is refilled only after
-    its previous copy's event has completed (the host waits on it then),
-    and the returned tensor is recorded on the compute stream, so the
-    allocator does not hand its memory back to the copy stream while
-    kernels still read it. On the CPU, ``put`` wraps the array without a
-    copy."""
+    On CUDA, each :meth:`put` copies the array once on the host, as its
+    strides lie (a row chunk, a band stride, a flip), into one of
+    ``depth`` pinned host buffers, taken in turn, and copies that on a
+    side stream into a tensor allocated there; the caller's current stream
+    waits on the copy's event, so work enqueued after ``put`` sees the
+    data and the host never blocks on the copy. A staging buffer is
+    refilled only after its previous copy's event has completed (the host
+    waits on it then), and the returned tensor is recorded on the compute
+    stream, so the allocator does not hand its memory back to the copy
+    stream while kernels still read it. On the CPU, ``put`` wraps a
+    C-contiguous array without a copy and copies any other once.
+    ``host_copy_bytes`` counts the bytes the host has copied in ``put``."""
 
     def __init__(self, device: torch.device, depth: int = 2):
         self.device = device
         self.depth = depth
-        self._slots: list = [None] * depth   # (pinned buffer, copy event)
+        self._bufs: list = [None] * depth    # the staging buffers
+        self._done: list = [None] * depth    # each one's last copy event
         self._turn = 0
         self._stream = (torch.cuda.Stream(device) if device.type == "cuda"
                         else None)
+        self.host_copy_bytes = 0
+
+    def _stage(self, arr: np.ndarray) -> torch.Tensor:
+        """Copy ``arr`` once into this turn's staging buffer (pinned on
+        CUDA; grown when too small) and return the buffer's front as a
+        contiguous tensor of ``arr``'s shape and dtype. The caller has
+        waited on the buffer's last copy."""
+        buf, n = self._bufs[self._turn], arr.nbytes
+        if buf is None or buf.numel() < n:
+            buf = torch.empty(n, dtype=torch.uint8,
+                              pin_memory=self._stream is not None)
+            self._bufs[self._turn] = buf
+        dst = buf[:n].numpy().view(arr.dtype).reshape(arr.shape)
+        np.copyto(dst, arr)
+        self.host_copy_bytes += n
+        return buf[:n].view(torch.from_numpy(dst).dtype).view(arr.shape)
 
     def put(self, arr: np.ndarray) -> torch.Tensor:
-        a = np.ascontiguousarray(arr)
+        arr = np.asarray(arr)
         if self._stream is None:
-            return torch.from_numpy(a).to(self.device)
-        slot = self._slots[self._turn]
-        if slot is not None:
-            slot[1].synchronize()            # its last copy has landed
-        buf = slot[0] if slot is not None else None
-        if buf is None or buf.numel() < a.nbytes:
-            buf = torch.empty(a.nbytes, dtype=torch.uint8, pin_memory=True)
-        host = torch.from_numpy(a)
-        staged = buf[:a.nbytes].view(host.dtype).view(host.shape)
-        staged.copy_(host)
+            if not arr.flags.c_contiguous:
+                self.host_copy_bytes += arr.nbytes
+            return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        if self._done[self._turn] is not None:
+            self._done[self._turn].synchronize()   # its last copy landed
+        staged = self._stage(arr)
         compute = torch.cuda.current_stream(self.device)
         with torch.cuda.stream(self._stream):
-            out = torch.empty(host.shape, dtype=host.dtype,
+            out = torch.empty(staged.shape, dtype=staged.dtype,
                               device=self.device)
             out.copy_(staged, non_blocking=True)
             done = torch.cuda.Event()
             done.record(self._stream)
         compute.wait_event(done)
         out.record_stream(compute)
-        self._slots[self._turn] = (buf, done)
+        self._done[self._turn] = done
         self._turn = (self._turn + 1) % self.depth
         return out
 

@@ -25,13 +25,13 @@ function of per-band 256-bin histograms:
 ``preprocess_large`` stretches a raw scene of any size with the exact LUT
 (CUDA kernel ``ops.kernels.lut_hist``, uint8 out, with the stretched
 histogram). ``classify_large_scene_streamed`` takes the raw scene from the
-host: its row chunks are copied from pinned memory on a side stream
-(``io.stream.HostToDevice``) and counted as they land (CUDA kernel
-``ops.kernels.raw_counts``); the stretch tables come from those counts. The
-rule route
-(``rule_based_large_scene``) runs over the whole scene (CUDA kernel
-``ops.kernels.cc_labels``). The ``*_resumable`` drivers checkpoint per tile
-or per mask and resume bit for bit.
+host: its row chunks are copied once on the host into pinned memory, then
+to the device on a side stream (``io.stream.HostToDevice``), and counted as
+they land (CUDA kernel ``ops.kernels.raw_counts``); the stretch tables come
+from those counts. The rule route (``rule_based_large_scene``) runs over
+the whole scene (CUDA kernel ``ops.kernels.cc_labels``). The
+``*_resumable`` drivers checkpoint per tile or per mask and resume bit for
+bit.
 
 Every entry point takes ``device=``: CUDA unless the caller names the CPU
 (``backend.resolve_device``). A scene of at most
@@ -667,11 +667,14 @@ def classify_large_scene_streamed(
     (CUDA unless named), with the scene's copy to the device streamed
     under its counting:
 
-      * raw row chunks are copied from pinned host memory on a side
-        stream (``io.stream.HostToDevice``), each counted on the device as
-        it lands (``ops.kernels.raw_counts``, one accumulator for the
-        scene); the host fetches the (7, 256) raw-DN counts once and
-        derives the LUT and the stretched histogram from them
+      * raw row chunks are copied once on the host, straight from the
+        scene's strided rows into pinned memory, then to the device on a
+        side stream (``io.stream.HostToDevice``; span ``stretch.hist``
+        carries the bytes copied on the host, ``host_copy_bytes``, one
+        scene's worth), each counted on the device as it lands
+        (``ops.kernels.raw_counts``, one accumulator for the scene); the
+        host fetches the (7, 256) raw-DN counts once and derives the LUT
+        and the stretched histogram from them
         (``stretch_tables_from_counts``, bit-equal to
         ``build_stretch_stats``'s);
       * each resident raw chunk is stretched by ``ops.kernels.lut_hist``
@@ -702,10 +705,12 @@ def classify_large_scene_streamed(
         with span("large.host_stats", bytes=arr.nbytes):
             counts_d = torch.zeros((c, 256), dtype=torch.int32, device=dev)
             raw = {}
-            with span("stretch.hist"):
+            with span("stretch.hist") as rec:
                 for i in range(n_chunks):
                     raw[i] = put(i)
                     raw_counts(raw[i], counts_d)
+                if rec is not None:
+                    rec.counts["host_copy_bytes"] = up.host_copy_bytes
             with span("large.fetch", bytes=counts_d.nbytes):
                 counts = counts_d.cpu().numpy()
             lut, hists = stretch_tables_from_counts(counts, cal.gains,

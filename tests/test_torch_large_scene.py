@@ -473,7 +473,8 @@ def test_streamed_counts_every_chunk_once(scenes, forest, monkeypatch):
 def test_streamed_counts_on_the_card_once_a_chunk():
     """On the card a streamed 6000 x 6000 call launches the count kernel
     once a chunk (12), records the raw bytes it counted on
-    ``large.host_stats``, and maps as the resident route does."""
+    ``large.host_stats`` and those it copied on the host, once each, on
+    ``stretch.hist``, and maps as the resident route does."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from torch.profiler import ProfilerActivity, profile
@@ -500,5 +501,7 @@ def test_streamed_counts_on_the_card_once_a_chunk():
     assert kernels.raw_counts.launches == before + 12
     host, = [r for r in timing.spans() if r.name == "large.host_stats"]
     assert host.counts["bytes"] == raw.nbytes
+    hist, = [r for r in timing.spans() if r.name == "stretch.hist"]
+    assert hist.counts["host_copy_bytes"] == raw.nbytes   # one host copy
     np.testing.assert_array_equal(got, tlarge.classify_large_scene(
         pre, gf, CFG, tile_rows=504, hists=hists, device=dev))

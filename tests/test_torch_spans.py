@@ -236,7 +236,7 @@ def _streamed(scene):
         raw, gf, CAL, CFG, tile_rows=TILE_ROWS, device=CPU)
 
 
-def test_streamed_scene_spans(small_scene):
+def test_streamed_scene_spans(small_scene, monkeypatch):
     off = _streamed(small_scene)
     on, recs, _ = _profiled(lambda: _streamed(small_scene))
     np.testing.assert_array_equal(on, off)
@@ -250,8 +250,14 @@ def test_streamed_scene_spans(small_scene):
     assert host.end <= bc.start and bc.end <= d.start
     for name in ("stretch.params", "stretch.hist"):
         assert [r.parent for r in _by_name(recs, name)] == [host.id]
-    # the raw bytes counted on the device
+    # the raw bytes counted on the device, each copied once on the host
     assert host.counts["bytes"] == small_scene[0].nbytes
+    hist, = _by_name(recs, "stretch.hist")
+    assert hist.counts["host_copy_bytes"] == small_scene[0].nbytes
+    monkeypatch.setattr(timing, "spans", lambda: list(recs))
+    assert manifest.metric_reader("stage_host_copies.large").read(
+        {}) == pytest.approx(1.0)
+    monkeypatch.undo()
     # one fetch a blocking copy: the (7, 256) int32 raw counts, pass B/C's
     # sums and its grids, then one label tile each of pass D's
     # ceil(104 / 42) = 3
@@ -398,6 +404,36 @@ def test_readers_on_a_made_up_session(monkeypatch):
     monkeypatch.delattr(timing, "spans")
     for name in EXPECTED_MS:
         assert manifest.metric_reader(name).read(REC) is None
+
+
+def _staged(*scenes):
+    """A streamed scene's ``large.host_stats`` span of ``bytes`` raw bytes
+    around a ``stretch.hist`` span with ``host_copy_bytes`` copied (no
+    count where None) for each ``(bytes, host_copy_bytes)``."""
+    recs = []
+    for k, (raw, copied) in enumerate(scenes):
+        host = SpanRecord("large.host_stats", 2 * k + 1, None, 2 * k + 1, 0,
+                          {"bytes": raw}, float(k), k + 0.5)
+        recs += [host, SpanRecord(
+            "stretch.hist", 2 * k + 2, host.id, host.id, 0,
+            {} if copied is None else {"host_copy_bytes": copied},
+            k + 0.1, k + 0.2)]
+    return recs
+
+
+@pytest.mark.parametrize("scenes, copies", [
+    (((100, 100), (100, 100)), 1.0), (((100, 200),), 2.0),
+    (((100, 100), (300, 600)), 1.75), (((100, None),), None), ((), None)])
+def test_stage_host_copies_reader(monkeypatch, scenes, copies):
+    recs = _staged(*scenes)
+    # a batch's stretch.hist, outside any scene, carries no count
+    recs.append(SpanRecord("stretch.hist", 99, None, 99, 0, {}, 5.0, 5.1))
+    monkeypatch.setattr(timing, "spans", lambda: list(recs))
+    got = manifest.metric_reader("stage_host_copies.large").read({})
+    assert got == copies if copies is None else got == pytest.approx(copies)
+    monkeypatch.delattr(timing, "spans")        # an older checkout
+    assert manifest.metric_reader("stage_host_copies.large").read({}) is None
+
 
 
 # ------------------------------------------------------ engine counters

@@ -1,6 +1,7 @@
 """PyTorch port vs the JAX package, on the CPU: host-to-device tile
 streaming (``io.stream``): the tile grid, halo reads, ``stream_tiles``
-with ``assemble_tiles``, and the device rule."""
+with ``assemble_tiles``, the device rule, and ``HostToDevice``'s one host
+copy of a strided view (on the card too, with ``-m card``)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -81,6 +82,79 @@ def test_host_to_device_on_the_cpu():
         t = up.put(view)
         assert t.device.type == "cpu" and t.is_contiguous()
         np.testing.assert_array_equal(t.numpy(), view)
+
+
+# the views callers hand ``HostToDevice.put``: a resident scene, a
+# streamed row chunk, a band stride, a flipped scene (negative strides,
+# which ``torch.from_numpy`` refuses) and a float32 scene
+VIEWS = {
+    "contiguous": lambda a: a,
+    "row_chunk": lambda a: a[:, 2:5],
+    "band_strided": lambda a: a[::2],
+    "flipped": lambda a: a[:, ::-1],
+    "float32": lambda a: a.astype(np.float32) / 7,
+}
+
+
+def _scene(h=9, w=11, seed=3):
+    return np.random.default_rng(seed).integers(0, 256, (7, h, w),
+                                                dtype=np.uint8)
+
+
+@pytest.mark.parametrize("name", list(VIEWS))
+def test_stage_copies_a_view_once(name):
+    view = VIEWS[name](_scene())
+    up = tstream.HostToDevice(torch.device("cpu"))
+    staged = up._stage(view)
+    assert up.host_copy_bytes == view.nbytes       # one host copy
+    assert staged.is_contiguous() and tuple(staged.shape) == view.shape
+    assert staged.dtype == torch.from_numpy(np.ascontiguousarray(view)).dtype
+    assert staged.numpy().tobytes() == np.ascontiguousarray(view).tobytes()
+    # a smaller array refills the same buffer
+    again = up._stage(view[:, :1])
+    assert again.data_ptr() == staged.data_ptr()
+    assert up.host_copy_bytes == view.nbytes + view[:, :1].nbytes
+    np.testing.assert_array_equal(again.numpy(), view[:, :1])
+    # the CPU's put wraps a C-contiguous array and copies any other once
+    before = up.host_copy_bytes
+    t = up.put(view)
+    np.testing.assert_array_equal(t.numpy(), view)
+    assert up.host_copy_bytes - before == (
+        0 if view.flags.c_contiguous else view.nbytes)
+
+
+@pytest.mark.card
+def test_put_lands_each_view_on_the_card():
+    """``put`` of every view lands bit-equal on the card after one host
+    copy into a pinned slot, and a slot refilled after its copy's event
+    holds the new chunk while the earlier chunk's tensor keeps its own."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    up = tstream.HostToDevice(dev, depth=2)
+    a = _scene(600, 600)
+    for name, make in VIEWS.items():
+        view = make(a)
+        before = up.host_copy_bytes
+        got = up.put(view)
+        assert up.host_copy_bytes - before == view.nbytes, name
+        assert got.device.type == "cuda" and got.is_contiguous()
+        np.testing.assert_array_equal(got.cpu().numpy(), view, err_msg=name)
+    # row chunks of a scene, as the streamed route takes them: chunk i
+    # and chunk i + 2 share a slot
+    big = _scene(2016, 6000, seed=4)
+    rows = 504
+    chunks = [big[:, y:y + rows] for y in range(0, big.shape[1], rows)]
+    first = up._turn
+    outs = [up.put(c) for c in chunks]
+    torch.cuda.synchronize()
+    for i, (c, o) in enumerate(zip(chunks, outs)):
+        np.testing.assert_array_equal(o.cpu().numpy(), c, err_msg=str(i))
+    for i in (len(chunks) - 2, len(chunks) - 1):
+        slot, c = up._bufs[(first + i) % 2], chunks[i]
+        assert slot.is_pinned()
+        assert slot[:c.nbytes].numpy().tobytes() == \
+            np.ascontiguousarray(c).tobytes()
 
 
 def test_stream_tiles_raises_without_cuda():
