@@ -1,7 +1,8 @@
 """Readings of the control that the comparison deciding ``correct`` has to
-reject: the plain reference put in the program's place with its stack (or
-its rule indices) stored in bfloat16, the precision below the
-configuration's float32 that a later change would be tempted by.
+reject: the configuration's reference (its ``reference`` file's
+``METHODS`` entry for the traffic's method) put in the program's place
+with its stack (or its rule indices) stored in bfloat16, the precision
+below the configuration's float32 that a later change would be tempted by.
 
     python3 perfbench/control.py --workload CELL --seeds N [N ...]
 

@@ -1,7 +1,16 @@
 """The comparison that decides ``correct``: every answer kept from the
-window against the plain reference (``perfbench/reference``) on the same
-raw input, computed again from the benchmark's inputs and forest fields
-once the program's state is freed.
+window against the configuration's plain reference (the module at its
+``reference`` path, ``manifest.reference``) on the same raw input,
+computed again from the benchmark's inputs and forest fields once the
+program's state is freed.
+
+A reference module exports ``METHODS``, which maps a traffic ``method`` to
+a callable ``(scene, cfg, fields, depth, device, store_dtype=None) ->
+(labels, ops)``: ``labels`` the (H, W) int64 numpy classes of the raw
+scene, ``ops`` the operations every implementation must do for it, as the
+reference counts them. A method that fits nothing ignores ``fields`` and
+``depth``; ``store_dtype`` rounds the reference's intermediate planes
+through a lower precision (the control, ``perfbench/control.py``).
 
 Numbers compared (each printed beside its limit):
 
@@ -14,38 +23,45 @@ Numbers compared (each printed beside its limit):
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Tuple
 
 import numpy as np
 
-from perfbench.reference import landcover
+from perfbench.harness import manifest
+
+
+def reference_method(ctx) -> Callable:
+    """The configuration's reference for the traffic's ``method``."""
+    ref = manifest.reference(ctx.cfg)
+    method = ctx.traffic["method"]
+    if method not in ref.METHODS:
+        raise SystemExit(
+            f"{ctx.cfg['reference']} has no reference for method "
+            f"{method!r}; its METHODS: {', '.join(sorted(ref.METHODS))}")
+    return ref.METHODS[method]
 
 
 def reference_answer(ctx, scene: np.ndarray, fields, depth,
                      store_dtype=None) -> Tuple[np.ndarray, int]:
-    """``(labels, forest comparisons)`` of the reference on ``scene``."""
-    method = ctx.traffic["method"]
-    if method == "random_forest":
-        return landcover.forest_labels(scene, ctx.cfg, fields, depth, ctx.dev,
-                                       store_dtype)
-    if method == "rule_based":
-        return landcover.rule_labels(scene, ctx.cfg, ctx.dev,
-                                     store_dtype), 0
-    raise SystemExit(f"no reference for method {method!r}")
+    """``(labels, ops)`` of the reference on ``scene``."""
+    return reference_method(ctx)(scene, ctx.cfg, fields, depth, ctx.dev,
+                                 store_dtype)
 
 
 def compare(ctx, answers: Iterable[Tuple[object, np.ndarray]],
             inputs: Dict[object, np.ndarray], missing: int, fields,
             depth) -> dict:
     """``{"correct", "numbers": {name: {"value", "limit"}},
-    "compared", "comparisons_per_pixel"}``."""
+    "compared", "ops_per_pixel"}``."""
+    reference = reference_method(ctx)
     refs: Dict[object, np.ndarray] = {}
-    comparisons = []
+    ops = []
     worst, compared = 0.0, 0
     for key, out in answers:
         if key not in refs:
-            refs[key], k = reference_answer(ctx, inputs[key], fields, depth)
-            comparisons.append(k / refs[key].size)
+            refs[key], k = reference(inputs[key], ctx.cfg, fields, depth,
+                                     ctx.dev)
+            ops.append(k / refs[key].size)
         ref = refs[key]
         share = (1.0 if out.shape != ref.shape else
                  float(np.count_nonzero(out.astype(np.int64) != ref))
@@ -58,5 +74,4 @@ def compare(ctx, answers: Iterable[Tuple[object, np.ndarray]],
     ok = compared > 0 and all(v["value"] <= v["limit"]
                               for v in numbers.values())
     return {"correct": ok, "numbers": numbers, "compared": compared,
-            "comparisons_per_pixel": (float(np.mean(comparisons))
-                                      if comparisons else 0.0)}
+            "ops_per_pixel": float(np.mean(ops)) if ops else 0.0}

@@ -1,7 +1,8 @@
 """Finds every part of a cell by the names in ``BENCHMARK.json``.
 
 Nothing here knows a cell, a configuration, a traffic mix or a metric by
-name: a configuration is ``configs`` entry's ``file``, a traffic mix is
+name: a configuration is ``configs`` entry's ``file``, its plain reference
+the module at the configuration's ``reference`` path, a traffic mix is
 ``traffic/<mix>.json``, its loop ``loops/<loop>.py``, a per-layer
 metric's reader ``metrics/<metric>.py`` and a kernel's counts
 ``counts/<kernel>.py``.
@@ -58,7 +59,8 @@ def per_layer(bench: dict, cell_name: str) -> list:
 
 def _load(path: Path, tag: str) -> ModuleType:
     if not path.exists():
-        raise SystemExit(f"missing {path.relative_to(ROOT)}")
+        shown = path.relative_to(ROOT) if path.is_relative_to(ROOT) else path
+        raise SystemExit(f"missing {shown}")
     spec = importlib.util.spec_from_file_location(
         f"perfbench_{tag}_{path.stem.replace('.', '_').replace('-', '_')}",
         path)
@@ -77,3 +79,10 @@ def metric_reader(name: str) -> ModuleType:
 
 def counts(kernel: str) -> ModuleType:
     return _load(PERFBENCH / "counts" / f"{kernel}.py", "counts")
+
+
+def reference(cfg: dict) -> ModuleType:
+    """The plain reference at the configuration's ``reference`` path
+    (relative to the checkout's root, or absolute), with ``METHODS`` as
+    ``harness/check.py`` says."""
+    return _load(ROOT / cfg["reference"], "reference")

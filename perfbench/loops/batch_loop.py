@@ -176,7 +176,7 @@ def answers(ctx, st):
     return out, st["inputs"], 0
 
 
-def work(ctx, st, comparisons_per_pixel):
+def work(ctx, st, ops_per_pixel):
     """The unit (a batch) of work, for the counts: the kernel calls it makes
     and the step every implementation must do."""
     b, c, h, w = st["batches"][0].shape
@@ -191,7 +191,7 @@ def work(ctx, st, comparisons_per_pixel):
         calls["forest_labels"] = [{
             "pixels": b * n, "features": 19, "trees": fields["left"].shape[0],
             "classes": fields["leaf_proba"].shape[2],
-            "comparisons": comparisons_per_pixel * b * n}]
+            "comparisons": ops_per_pixel * b * n}]
     else:
         calls["ccmin_prop"] = [{"masks": 3 * b, "pixels": n},
                                {"masks": b, "pixels": n}]
@@ -202,5 +202,5 @@ def work(ctx, st, comparisons_per_pixel):
     step = {"raw_bytes": b * c * n, "map_bytes": b * n,
             "table_bytes": common.forest_table_bytes(st["fields"])
             if forest else 0,
-            "comparisons": comparisons_per_pixel * b * n if forest else 0}
+            "ops": ops_per_pixel * b * n}
     return {"calls": calls, "step": step}

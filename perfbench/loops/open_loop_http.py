@@ -210,5 +210,5 @@ def teardown(ctx, st):
         shutil.rmtree(st["tmp"], ignore_errors=True)
 
 
-def work(ctx, st, comparisons_per_pixel):
+def work(ctx, st, ops_per_pixel):
     return {}

@@ -90,7 +90,7 @@ def answers(ctx, st):
     return st["answers"], st["inputs"], 0
 
 
-def work(ctx, st, comparisons_per_pixel):
+def work(ctx, st, ops_per_pixel):
     """The unit (a scene) of work: one ``lut_hist`` call and one
     ``forest_labels`` call a row chunk of ``tile_rows``."""
     c, h, w = st["scenes"][0].shape
@@ -102,9 +102,9 @@ def work(ctx, st, comparisons_per_pixel):
     forest = [{"pixels": r * w, "features": 19,
                "trees": fields["left"].shape[0],
                "classes": fields["leaf_proba"].shape[2],
-               "comparisons": comparisons_per_pixel * r * w} for r in chunks]
+               "comparisons": ops_per_pixel * r * w} for r in chunks]
     step = {"raw_bytes": c * h * w, "map_bytes": h * w,
             "table_bytes": common.forest_table_bytes(fields),
-            "comparisons": comparisons_per_pixel * h * w}
+            "ops": ops_per_pixel * h * w}
     return {"calls": {"lut_hist": lut, "forest_labels": forest},
             "step": step}

@@ -22,6 +22,10 @@ configuration file's settings it computes again:
 
 ``store_dtype`` rounds the stack (or the rule indices) through a lower
 precision: the control that a sound comparison has to reject.
+
+``METHODS`` holds the traffic methods it serves, in the form
+``perfbench/harness/check.py`` describes; the configurations name this
+file as their ``reference``.
 """
 
 from __future__ import annotations
@@ -370,3 +374,13 @@ def rule_labels(scene: np.ndarray, cfg: dict, device, store_dtype=None
                              int(area * rc["bareland_min_area_frac"])), 3)
     out[bare & (out == 0)] = 4
     return out
+
+
+def _rules(scene: np.ndarray, cfg: dict, fields, depth, device,
+           store_dtype=None):
+    """``(rule_labels as int64, 0)``: the rule method fits nothing and runs
+    no model, so it needs no operations the step counts."""
+    return rule_labels(scene, cfg, device, store_dtype).astype(np.int64), 0
+
+
+METHODS = {"random_forest": forest_labels, "rule_based": _rules}

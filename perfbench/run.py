@@ -15,7 +15,8 @@ names in ``BENCHMARK.json`` (``harness/manifest.py``). The run:
    it under the profiler), sampling its own CPU use and the card's clocks
    beside it (``harness/hostload.py``, printed with the notes);
 4. reads the peak device memory, frees the program's state and compares
-   the answers with the plain reference (``harness/check.py``);
+   the answers with the configuration's plain reference
+   (``harness/check.py``);
 5. checks that no module of JAX or the JAX package is loaded (exit 4, no
    result), prints the numbers compared beside their limits as its last
    lines on standard error, and prints the result as the last line of
@@ -183,7 +184,7 @@ def run(argv=None, device=None, emit=print) -> dict:
 
     rec.update(spans=dict(tracer.totals), trace=tracer.result,
                peak_window_bytes=peak_window,
-               work=drv.work(ctx, st, result_check["comparisons_per_pixel"]))
+               work=drv.work(ctx, st, result_check["ops_per_pixel"]))
     metrics = {}
     if args.trace:
         for m in manifest.per_layer(bench, cell["name"]):
@@ -217,7 +218,7 @@ def run(argv=None, device=None, emit=print) -> dict:
     emit("perfbench: notes " + json.dumps(
         {**ctx.notes, "units": rec["units"], "window_s": rec["window_s"],
          "answers_compared": result_check["compared"],
-         "comparisons_per_pixel": result_check["comparisons_per_pixel"]},
+         "ops_per_pixel": result_check["ops_per_pixel"]},
         default=float), file=sys.stderr)
     bad = nojax.forbidden_loaded()
     if bad:

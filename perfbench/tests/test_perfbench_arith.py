@@ -87,7 +87,7 @@ def test_counts_against_hand_worked_numbers():
                                                    24 * 360000)
     step = manifest.counts("step").count
     assert step({"raw_bytes": 10, "map_bytes": 2, "table_bytes": 3,
-                 "comparisons": 7}) == (15, 7)
+                 "ops": 7}) == (15, 7)
     # PERF.md's bound of the batch's forest call: 230.4 MB at 3.35 TB/s
     t = roofline.least_time_s(8 * 360000 * 80, 0)
     assert t == pytest.approx(0.0688e-3, rel=1e-3)
@@ -99,7 +99,7 @@ def test_kernel_share_and_step_share_from_a_record():
         "work": {"calls": {"lut_hist": [{"planes": 56, "pixels": 360000,
                                           "out_bytes": 4, "hist": False}]},
                  "step": {"raw_bytes": 3.35e12, "map_bytes": 0,
-                          "table_bytes": 0, "comparisons": 0}},
+                          "table_bytes": 0, "ops": 0}},
         "units": 10, "window_s": 20.0}
     bound = 56 * (360000 * 5 + 256) / roofline.HBM_BYTES_PER_S
     assert roofline.kernel_share(rec, "lut_hist") == pytest.approx(

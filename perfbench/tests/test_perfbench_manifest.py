@@ -95,8 +95,11 @@ def test_parts_found_by_name():
         cfg = manifest.config(b, c["name"])
         assert cfg["name"] == c["name"] and cfg["reduced"] == c["reduced"]
         assert (manifest.ROOT / cfg["reference"]).exists()
+        assert isinstance(manifest.reference(cfg).METHODS, dict)
     for w in b["workloads"]:
         t = manifest.traffic(w["traffic"])
+        ref = manifest.reference(manifest.config(b, w["config"]))
+        assert t["method"] in ref.METHODS, (w["name"], t["method"])
         drv = manifest.loop(t["loop"])
         for fn in ("inputs", "setup", "window", "answers", "work"):
             assert callable(getattr(drv, fn)), (t["loop"], fn)
