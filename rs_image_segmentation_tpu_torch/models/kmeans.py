@@ -41,6 +41,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..backend import as_tensor
+from ..utils.timing import span
 
 
 class KMeansState(NamedTuple):
@@ -124,16 +125,19 @@ def kmeans_plus_plus_init(x: torch.Tensor, k: int,
     ``group`` the argmax is global (module docstring)."""
     xb = x if x.dim() == 3 else x[None]
     b, n, f = xb.shape
-    off, total = _shard_rows(n, group, xb.device)
-    noise = gumbel_noise(generator, k, total)[:, off:off + n].to(xb.device)
-    cents = xb.new_zeros((b, k, f))
-    cents[:, 0] = _global_pick(xb, noise[0].expand(b, n), group)
-    d2 = torch.full((b, n), float("inf"), device=xb.device)
-    for i in range(1, k):
-        d2 = torch.minimum(d2, _sq_dists(xb, cents[:, i - 1:i])[..., 0])
-        logits = torch.where(d2 > 0, torch.log(torch.where(d2 > 0, d2, 1.0)),
-                             float("-inf"))
-        cents[:, i] = _global_pick(xb, logits + noise[i], group)
+    with span("kmeans.init", picks=k):
+        off, total = _shard_rows(n, group, xb.device)
+        noise = gumbel_noise(generator, k, total)[:, off:off + n].to(
+            xb.device)
+        cents = xb.new_zeros((b, k, f))
+        cents[:, 0] = _global_pick(xb, noise[0].expand(b, n), group)
+        d2 = torch.full((b, n), float("inf"), device=xb.device)
+        for i in range(1, k):
+            d2 = torch.minimum(d2, _sq_dists(xb, cents[:, i - 1:i])[..., 0])
+            logits = torch.where(d2 > 0,
+                                 torch.log(torch.where(d2 > 0, d2, 1.0)),
+                                 float("-inf"))
+            cents[:, i] = _global_pick(xb, logits + noise[i], group)
     return cents if x.dim() == 3 else cents[0]
 
 
@@ -189,7 +193,11 @@ def fit_centroids(x: torch.Tensor, k: int, seed: int = 42,
     F)) when given, else from k-means++ with the Gumbel noise of ``seed``.
     A problem stops once its squared centroid shift is at most its
     tolerance, or after ``max_iter`` iterations. On ``group`` each rank
-    holds its own points of every problem and the fit is global."""
+    holds its own points of every problem and the fit is global.
+
+    Marked ``kmeans.lloyd`` (k-means++ before it is ``kmeans.init``, count
+    ``picks``), with counts ``problems`` (B) and ``iters``, the loop's
+    iterations: the largest ``n_iter``, each one host sync."""
     if init_centroids is not None:
         init = as_tensor(init_centroids, x.device, torch.float32)
         if init.shape[-2] != k:
@@ -199,23 +207,30 @@ def fit_centroids(x: torch.Tensor, k: int, seed: int = 42,
     else:
         cents = kmeans_plus_plus_init(
             x, k, torch.Generator().manual_seed(seed), group)
-    tol_abs = _tol_abs(x, tol, group)
-    xn = _sq_norms(x)
-    shift = torch.full((x.shape[0],), float("inf"), device=x.device)
-    n_iter = torch.zeros((x.shape[0],), dtype=torch.int64, device=x.device)
-    while True:
-        active = (shift > tol_abs) & (n_iter < max_iter)
-        if group is not None:
-            # the shifts come from all-reduced centroids; the maximum over
-            # the ranks makes the loop's exit one decision for them all
-            active = _pmax(active.to(torch.int32), group) > 0
-        if not bool(active.any()):          # the iteration's one host sync
-            break
-        new, _, _ = _lloyd(x, cents, xn, group)
-        step = torch.sum((new - cents) ** 2, dim=(1, 2))
-        cents = torch.where(active[:, None, None], new, cents)
-        shift = torch.where(active, step, shift)
-        n_iter = n_iter + active.to(torch.int64)
+    with span("kmeans.lloyd", problems=x.shape[0]) as rec:
+        tol_abs = _tol_abs(x, tol, group)
+        xn = _sq_norms(x)
+        shift = torch.full((x.shape[0],), float("inf"), device=x.device)
+        n_iter = torch.zeros((x.shape[0],), dtype=torch.int64,
+                             device=x.device)
+        iters = 0
+        while True:
+            active = (shift > tol_abs) & (n_iter < max_iter)
+            if group is not None:
+                # the shifts come from all-reduced centroids; the maximum
+                # over the ranks makes the loop's exit one decision for
+                # them all
+                active = _pmax(active.to(torch.int32), group) > 0
+            if not bool(active.any()):      # the iteration's one host sync
+                break
+            new, _, _ = _lloyd(x, cents, xn, group)
+            step = torch.sum((new - cents) ** 2, dim=(1, 2))
+            cents = torch.where(active[:, None, None], new, cents)
+            shift = torch.where(active, step, shift)
+            n_iter = n_iter + active.to(torch.int64)
+            iters += 1
+        if rec is not None:
+            rec.counts["iters"] = iters
     return cents, n_iter, xn
 
 

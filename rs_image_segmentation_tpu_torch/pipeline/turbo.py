@@ -428,10 +428,11 @@ def assign_clusters(xs_cm: torch.Tensor, cents: torch.Tensor
                     ) -> torch.Tensor:
     """Every pixel's nearest centroid: (B, F, N) features and (B, K, F)
     centroids -> (B, N) int64, ``argmin_k (|c_k|^2 - 2 c_k . x)`` (first
-    index on ties)."""
-    cross = torch.bmm(cents, xs_cm)                          # (B, K, N)
-    cn = torch.sum(cents * cents, dim=2)
-    return torch.argmin(cn[:, :, None] - 2.0 * cross, dim=1)
+    index on ties). Marked ``kmeans.assign``."""
+    with span("kmeans.assign"):
+        cross = torch.bmm(cents, xs_cm)                      # (B, K, N)
+        cn = torch.sum(cents * cents, dim=2)
+        return torch.argmin(cn[:, :, None] - 2.0 * cross, dim=1)
 
 
 def kmeans_scenes_turbo_batch(scenes_u8, stretch_luts_u8,
@@ -458,17 +459,19 @@ def kmeans_scenes_turbo_batch(scenes_u8, stretch_luts_u8,
     ``ValueError``): a (K, F) warm start for that fit. ``return_cents``:
     also return the fitted centroids, (K, F) with ``shared_fit``, else
     (B, K, F). ``stretch_params`` and ``stretch_hists`` are as in
-    :func:`classify_scenes_turbo`."""
+    :func:`classify_scenes_turbo`. Marked ``turbo.batch``; the fit's
+    spans are ``models.kmeans``'s."""
     if init_cents is not None and not shared_fit:
         raise ValueError("init_cents warm start requires shared_fit=True")
-    scenes, luts, hh = _batch_inputs(scenes_u8, stretch_luts_u8,
-                                     stretch_hists, device)
-    b, _, h, w = scenes.shape
-    xs_cm = kmeans_features(scenes, luts, cfg, hh)
-    cents, fit_cents, _ = kmeans_fit(xs_cm, n_clusters, seed, fit_stride,
-                                     shared_fit, init_cents)
-    maps = (assign_clusters(xs_cm, cents).reshape(b, h, w) + 1).to(
-        torch.uint8)
+    with span("turbo.batch"):
+        scenes, luts, hh = _batch_inputs(scenes_u8, stretch_luts_u8,
+                                         stretch_hists, device)
+        b, _, h, w = scenes.shape
+        xs_cm = kmeans_features(scenes, luts, cfg, hh)
+        cents, fit_cents, _ = kmeans_fit(xs_cm, n_clusters, seed,
+                                         fit_stride, shared_fit, init_cents)
+        maps = (assign_clusters(xs_cm, cents).reshape(b, h, w) + 1).to(
+            torch.uint8)
     return (maps, fit_cents) if return_cents else maps
 
 

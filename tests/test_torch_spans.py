@@ -319,6 +319,57 @@ def test_turbo_programs_spans_and_maps(small_scene, batch):
     assert _by_name(recs, "turbo.inputs")[0].counts["bytes"] == 0
 
 
+def test_kmeans_batch_spans_and_maps(batch, monkeypatch):
+    scenes, luts, _, _ = batch
+    small = FeatureStageConfig(glcm=GLCMConfig(window_size=8, step_size=8,
+                                               levels=8))
+
+    def fn():
+        maps, cents = turbo.kmeans_scenes_turbo_batch(
+            scenes, luts, 7, small, fit_stride=1, return_cents=True,
+            device=CPU)
+        return maps.numpy(), cents.numpy()
+
+    before = [r.id for r in spans()]
+    off = fn()
+    assert [r.id for r in spans()] == before        # nothing recorded
+    on, recs, _ = _profiled(fn)
+    for a, b in zip(on, off):
+        np.testing.assert_array_equal(a, b)
+    root, = _by_name(recs, "turbo.batch")
+    assert root.parent is None and {r.root for r in recs} == {root.id}
+    (inputs,), (init,), (lloyd,), (assign,) = (
+        _by_name(recs, n) for n in ("turbo.inputs", "kmeans.init",
+                                    "kmeans.lloyd", "kmeans.assign"))
+    assert {r.parent for r in (inputs, init, lloyd, assign)} == {root.id}
+    assert inputs.end <= init.start and init.end <= lloyd.start
+    assert lloyd.end <= assign.start
+    assert inputs.counts["bytes"] == scenes.nbytes + luts.nbytes
+    assert init.counts == {"picks": 7}
+    # the loop's iterations are the slowest problem's
+    xs = turbo.kmeans_features(torch.from_numpy(scenes),
+                               torch.from_numpy(luts), small)
+    _, _, n_iter = turbo.kmeans_fit(xs, 7, 42, 1, False)
+    assert lloyd.counts == {"problems": 2, "iters": int(n_iter.max())}
+    # the benchmark's readers of them, one batch in the session
+    monkeypatch.setattr(timing, "spans", lambda: list(recs))
+    for name, want in KMEANS_READERS.items():
+        assert manifest.metric_reader(name).read({}) == pytest.approx(
+            want(init, lloyd))
+    monkeypatch.setattr(timing, "spans", lambda: [
+        r for r in recs if not r.name.startswith("kmeans.")])
+    for name in KMEANS_READERS:
+        assert manifest.metric_reader(name).read({}) is None
+
+
+# the KMeans batch's readers, each from its session's spans
+KMEANS_READERS = {
+    "kmeans_init_ms.batch": lambda init, lloyd: 1e3 * init.duration,
+    "kmeans_lloyd_ms.batch": lambda init, lloyd: 1e3 * lloyd.duration,
+    "lloyd_iters.batch": lambda init, lloyd: lloyd.counts["iters"],
+}
+
+
 # ------------------------------------------------ the benchmark's readers
 
 def _session():
@@ -374,7 +425,10 @@ EXPECTED_MS = {
 def test_readers_on_a_made_up_session(monkeypatch):
     bench = manifest.load_benchmark()
     new = [m for m in bench["per_layer"] if m["source"] == "program_span"]
-    assert sorted(m["name"] for m in new) == sorted(EXPECTED_MS)
+    # the KMeans batch's span readers are read on a recorded batch above
+    read_above = [n for n in KMEANS_READERS if n.endswith("_ms.batch")]
+    assert sorted(m["name"] for m in new) == sorted([*EXPECTED_MS,
+                                                     *read_above])
     recs = _session()
     monkeypatch.setattr(timing, "spans", lambda: list(recs))
     for name, ms in EXPECTED_MS.items():
