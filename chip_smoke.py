@@ -98,8 +98,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
  16. the KMeans batch program, ``kmeans_scenes_turbo_batch`` (fit stride
      8), in three runs: per-scene fits, a shared fit, and a warm start
      that feeds the shared fit's centroids back as ``init_cents``; each
-     with launch counts read around one call (``lut_hist`` once, nothing
-     else), timed (median of 5 after a warm-up), split into stack, fit
+     with launch counts read around one call (``lut_hist`` once,
+     ``lloyd_pass`` twice an iteration of the fit, nothing else), timed (median of 5 after a warm-up), split into stack, fit
      and assignment by CUDA events, with each fit's Lloyd iterations; the
      same run on the CPU (the CPU's assignment to the card's centroids
      >= 99.9 % equal to the card's maps, the card's mapped kappa against
@@ -241,6 +241,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
      ``lut_hist`` and one ``forest_labels`` launch a replayed batch, one
      capture per batch shape, the count ``stack_graph`` of a replay, and
      eager against graphed wall ms a batch;
+ 25. (after phase 16) ``lloyd_pass`` at the KMeans batch's (8, 360 000,
+     19), k 7, against the plain ``_lloyd`` on the same inputs: two
+     launches, counts equal but for f32 near ties (by f64 distances),
+     the centroids of clusters no near tie touches within 1e-6 of the f64
+     means;
+     back to back, L2 flushed and alone against its byte bound, and both
+     loops' host ms an iteration; its row in the kernels' line;
  then the card's line, the kernels' JSON line and the result line.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs no
@@ -368,7 +375,7 @@ def all_kernels():
     return (kernels.lut_hist, kernels.forest_labels, kernels.ccmin_prop,
             kernels.hist_dense, kernels.keep_lut, kernels.cc_labels,
             kernels.fused_calibrate_stretch, kernels.fused_spectral_indices,
-            kernels.glcm_grid, kernels.raw_counts)
+            kernels.glcm_grid, kernels.raw_counts, kernels.lloyd_pass)
 
 
 STAGE_KERNELS = ("fused_calibrate_stretch", "fused_spectral_indices",
@@ -1533,12 +1540,20 @@ def kmeans_phases(dev, cfg, scenes, luts, hists, scenes_d, luts_d,
 
         (maps, cents), launches = counted(run)
         launches_by_run[label] = launches
-        check(launches["lut_hist"] == 1
-              and all(n == 0 for k, n in launches.items()
-                      if k != "lut_hist"),
-              f"KMeans [{label}]: one lut_hist launch and no other kernel: "
-              f"{launches}")
         shared = "shared_fit" in kw
+        # the fit's iterations, from the same fit run again
+        xs_d = turbo.kmeans_features(scenes_d, luts_d, cfg, hists_d)
+        fit_args = (KMEANS_K, KMEANS_SEED, KMEANS_STRIDE, shared,
+                    kw.get("init_cents"))
+        cents_b, _, n_iter = turbo.kmeans_fit(xs_d, *fit_args)
+        iters = int(n_iter.max())
+        check(launches["lut_hist"] == 1
+              and launches["lloyd_pass"] == 2 * iters > 0
+              and all(n == 0 for k, n in launches.items()
+                      if k not in ("lut_hist", "lloyd_pass")),
+              f"KMeans [{label}]: one lut_hist launch, two lloyd_pass "
+              f"launches an iteration of the fit ({iters}) and no other "
+              f"kernel: {launches}")
         check(maps.shape == (BATCH, HEIGHT, WIDTH)
               and maps.dtype == torch.uint8
               and int(maps.min()) >= 1 and int(maps.max()) <= KMEANS_K,
@@ -1558,10 +1573,6 @@ def kmeans_phases(dev, cfg, scenes, luts, hists, scenes_d, luts_d,
             walls.append((time.perf_counter() - t1) * 1e3)
         batch_ms = statistics.median(walls[1:])
         # the split, with CUDA events; the fit syncs once an iteration
-        xs_d = turbo.kmeans_features(scenes_d, luts_d, cfg, hists_d)
-        fit_args = (KMEANS_K, KMEANS_SEED, KMEANS_STRIDE, shared,
-                    kw.get("init_cents"))
-        cents_b, _, n_iter = turbo.kmeans_fit(xs_d, *fit_args)
         stack_ms = cuda_time_ms(lambda: turbo.kmeans_features(
             scenes_d, luts_d, cfg, hists_d), 3, 1)
         fit_ms = cuda_time_ms(lambda: turbo.kmeans_fit(xs_d, *fit_args), 3, 1)
@@ -1614,6 +1625,125 @@ def kmeans_phases(dev, cfg, scenes, luts, hists, scenes_d, luts_d,
                   f"KMeans [{label}] scene {b}: metrics on the card equal "
                   f"the CPU's")
     return launches_by_run
+
+
+def near_ties(x: torch.Tensor, cents: torch.Tensor, rel: float = 1e-5):
+    """(B, N, F) points and (B, K, F) centroids: ``(points whose two
+    nearest centroids lie within rel * (|x|^2 + max |c|^2) of each other by
+    f64 distances, (B, K) how many of them have each cluster among their
+    two)``, the points that f32 rounding may send to either."""
+    b, _, k = *x.shape[:2], cents.shape[1]
+    touch = torch.zeros((b, k), dtype=torch.int64, device=x.device)
+    if k < 2:
+        return 0, touch
+    x64, c64 = x.double(), cents.double()
+    d = torch.cdist(x64, c64) ** 2
+    two = torch.topk(d, 2, dim=2, largest=False)
+    scale = (x64 * x64).sum(-1) + (c64 * c64).sum(-1).amax(-1)[:, None]
+    tie = two.values[..., 1] - two.values[..., 0] <= rel * scale
+    for j in range(2):
+        touch.scatter_add_(1, two.indices[..., j], tie.long())
+    return int(tie.sum()), touch
+
+
+def lloyd_phase(dev, cfg, scenes_d, luts_d, hists_d, flush,
+                kmeans_launches) -> dict:
+    """Phase 25: ``lloyd_pass`` at the KMeans batch's shape, (8, 360 000,
+    19) scaled features, k 7, from k-means++ centroids, against one plain
+    ``_lloyd`` on the same inputs: its two launches, each cluster's count
+    the plain version's but for points whose two nearest centroids tie to
+    f32 rounding (:func:`near_ties`), and the centroids of the clusters no
+    such point touches within 1e-6 of the f64 means of their points (the
+    plain version's own f32 means printed beside). Returns its kernels row: back to back, L2 flushed and alone
+    (``tools/kernel_times.py::lloyd_numbers``), the kernels a call
+    launches, the byte bound, and the launches of phase 16's runs."""
+    from rs_image_segmentation_tpu_torch.models import kmeans
+    from rs_image_segmentation_tpu_torch.ops import kernels
+    from rs_image_segmentation_tpu_torch.pipeline import turbo
+    from rs_image_segmentation_tpu_torch.tools.kernel_times import (
+        lloyd_numbers)
+
+    x = turbo.kmeans_features(scenes_d, luts_d, cfg, hists_d).transpose(
+        1, 2).contiguous()
+    b, n, f = x.shape
+    check((b, n, f) == (BATCH, HEIGHT * WIDTH, 19),
+          f"the KMeans batch's features are ({BATCH}, {HEIGHT * WIDTH}, 19): "
+          f"{tuple(x.shape)}")
+    start = kmeans.kmeans_plus_plus_init(
+        x, KMEANS_K, torch.Generator().manual_seed(KMEANS_SEED))
+    want, labels, _ = kmeans._lloyd(x, start)
+    counts = torch.stack([torch.bincount(lab, minlength=KMEANS_K)
+                          for lab in labels])
+    cents = start.clone()
+    tol_abs = torch.full((b,), -1.0, device=dev)        # every problem on
+    shift = torch.full((b,), float("inf"), device=dev)
+    n_iter = torch.zeros((b,), dtype=torch.int64, device=dev)
+    scratch = kernels.lloyd_scratch(x, KMEANS_K)
+    _, launches = counted(lambda: kernels.lloyd_pass(
+        x, cents, shift, n_iter, tol_abs, 300, scratch))
+    check(launches["lloyd_pass"] == 2
+          and all(v == 0 for k, v in launches.items() if k != "lloyd_pass"),
+          f"one lloyd_pass call: two launches and no other kernel: "
+          f"{launches}")
+    # the kernel and cuBLAS add the distances' terms in other orders, so
+    # a point whose two nearest centroids tie to f32 rounding may go to
+    # either: such points, by f64 distances, bound how far the counts part
+    near, touch = near_ties(x, start)
+    got = scratch.counts.sum(dim=-1).long()
+    gap = (got - counts).abs()
+    check(bool((gap <= touch).all()), f"lloyd_pass: each cluster's count "
+          f"equals the plain version's but for near ties: {got.tolist()} / "
+          f"{counts.tolist()}, near ties touching each {touch.tolist()}")
+    # a cluster no near tie touches has the same points on both routes:
+    # its centroid within 1e-6 of their f64 mean
+    sums = torch.zeros((b, KMEANS_K, f), dtype=torch.float64, device=dev)
+    for i in range(b):
+        sums[i].index_add_(0, labels[i], x[i].double())
+    same = ((counts > 0) & (touch == 0))[..., None].expand_as(cents)
+    mean = sums / counts.clamp_min(1)[..., None]
+    err = ((cents.double() - mean).abs() / mean.abs().clamp_min(1e-30))[same]
+    plain_err = ((want.double() - mean).abs()
+                 / mean.abs().clamp_min(1e-30))[same]
+    worst = float(err.max()) if err.numel() else float("nan")
+    check(err.numel() > 0 and worst <= 1e-6 and bool((n_iter == 1).all()),
+          f"lloyd_pass: centroids within 1e-6 of the f64 means: {worst} "
+          f"over {err.numel()} values")
+    print(f"lloyd_pass at {b} x {n} x {f}, k {KMEANS_K}: counts of "
+          f"{int((gap == 0).sum())} of {gap.numel()} clusters equal to the "
+          f"plain _lloyd's, {int(gap.sum()) // 2} points moved between "
+          f"clusters, {near} near ties by f64 distances; worst relative gap "
+          f"to the f64 means where no near tie touches "
+          f"({int(same[..., 0].sum())} clusters) {worst:.3e} (the plain f32 "
+          f"means: {float(plain_err.max()):.3e})", flush=True)
+    row_nums, = lloyd_numbers(scenes_d, luts_d, cfg, flush).values()
+    launch = launch_numbers(lambda: kernels.lloyd_pass(
+        x, cents, shift, n_iter, tol_abs, 1 << 40, scratch))
+    check(len(launch["kernels_a_call_launches"]) == 2
+          and not launch["htod_memcpy"],
+          f"a lloyd_pass call launches two kernels and copies nothing to "
+          f"the card: {launch}")
+    print(f"lloyd_pass, device ms a pass (back to back / L2 flushed / "
+          f"alone): {row_nums['ms']:.4f} / {row_nums['cold_ms']:.4f} / "
+          f"{row_nums['alone_ms']} ({row_nums['passes']}); bound "
+          f"{row_nums['bound_ms']:.4f} ms by bytes; plain _lloyd "
+          f"{row_nums['plain_ms']:.4f}; loops, host ms an iteration: fused "
+          f"{row_nums['fused_loop_ms_an_iteration']:.4f}, plain "
+          f"{row_nums['plain_loop_ms_an_iteration']:.4f}; launches "
+          f"{launch['kernels_a_call_launches']}", flush=True)
+    return {"name": "lloyd_pass", "route": "cuda",
+            "source": f"{CSRC}/kmeans_lloyd.cu",
+            "replaces": "none (the JAX package's Lloyd step is XLA matmuls)",
+            "launches": {"one call": launches["lloyd_pass"],
+                         **{f"kmeans_scenes_turbo_batch [{label}]":
+                            d["lloyd_pass"]
+                            for label, d in kmeans_launches.items()}},
+            "counts_moved": int(gap.sum()) // 2, "near_ties": near,
+            "max_rel_err_f64_means": worst,
+            "plain_max_rel_err_f64_means": float(plain_err.max()),
+            "kernel_ms": row_nums["ms"], "bound_us": row_nums["bound_ms"] * 1e3,
+            "bound_by": "bytes", "library_ms": None,
+            "library_note": "no single PyTorch call computes a Lloyd step",
+            **row_nums, **launch}
 
 
 def forest_predict_phase(dev, stack0, forest, depth, main_labels0) -> dict:
@@ -2787,7 +2917,7 @@ FILE_LAUNCHES = {
     "stage1_gcps": {"fused_calibrate_stretch": 1},
     "stage2": {"fused_spectral_indices": 1, "glcm_grid": 1},
     "stage3_rule_based": {"cc_labels": 4},
-    "stage3_kmeans": {},
+    "stage3_kmeans": {"lloyd_pass": "2 an iteration"},
     "stage3_random_forest": {"forest_labels": 1},
     "stage4": {},
     "stage4_kmeans": {},
@@ -2894,7 +3024,8 @@ def file_pipeline_phase(scene0: np.ndarray, dev, smi: str, rows) -> dict:
             (card[name], calls), launches[name] = counted(
                 lambda fn=fn: plain_calls(fn))
             want = FILE_LAUNCHES[name]
-            check(all(n == want.get(k, 0)
+            check(all(n > 0 and n % 2 == 0 if want.get(k) == "2 an iteration"
+                      else n == want.get(k, 0)
                       for k, n in launches[name].items()),
                   f"{name}: launches {launches[name]}, want {want} and no "
                   f"other kernel")
@@ -4383,6 +4514,8 @@ def main() -> int:
     rows += stage_phases(dev, cfg, scenes, luts, scenes_d, luts_d)
     rows[0]["kmeans_launches"] = kmeans_phases(
         dev, cfg, scenes, luts, hists, scenes_d, luts_d, hists_d)
+    rows.append(lloyd_phase(dev, cfg, scenes_d, luts_d, hists_d, flush,
+                            rows[0]["kmeans_launches"]))
     rows[1]["forest_predict_launches"] = forest_predict_phase(
         dev, stack0, flat_forest, depth, labels[0])
     large = large_scene_phases(dev, cfg, scenes, luts, gf, gf_cpu, rows)

@@ -13,7 +13,12 @@ per-feature variance of the data.
 (B, N, F): each runs its own Lloyd loop, and a problem that has converged
 keeps its centroids and iteration count while the others go on (the JAX
 package's ``vmap`` of a ``while_loop``). The loop syncs with the host once
-an iteration, to test whether any problem is still active.
+an iteration, to test whether any problem is still active. On a CUDA
+batch an iteration is one ``ops.kernels.lloyd_pass`` (two kernels, one
+pass over the points; f32 points, K and F within ``ops.kernels``'
+``LLOYD_MAX_K`` and ``LLOYD_MAX_F``, or it raises); its sums are taken in
+f64 in a fixed order, so a rerun gives the same bits. CPU tensors run the
+matmul form, ``_lloyd``, which stays the plain version of the kernels.
 
 The k-means++ picks are Gumbel-max draws. The noise comes from a CPU
 ``torch.Generator`` and is copied to the data's device once, so a run on
@@ -30,8 +35,12 @@ pick is the global maximum of the Gumbel scores, each rank drawing the
 noise of its rows' global indices (its shard offset), so the picks are the
 one-rank picks; an empty cluster moves to the globally farthest point,
 averaged over the ranks that tie. The loop's convergence test reads only
-all-reduced values, so every rank runs the same iterations. With ``group``
-None every result is what it was without it, bit for bit.
+all-reduced values, so every rank runs the same iterations. On the card
+the ranks all-reduce the kernels' partials (f64 sums, counts, each rank's
+farthest point) between its two launches. With ``group`` None every result
+is what it was without it, bit for bit on the CPU; on the card the f64
+sums are added in another order, which the f32 centroids show only where
+the two sums round apart.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..backend import as_tensor
+from ..ops import kernels
 from ..utils.timing import span
 
 
@@ -82,13 +92,19 @@ def _global_pick(xb: torch.Tensor, scores: torch.Tensor, group
     whose maxima tie (with continuous scores, one)."""
     best = torch.argmax(scores, dim=1)
     rows = torch.arange(xb.shape[0], device=xb.device)
-    pts = xb[rows, best]
+    return _pick_across(xb[rows, best], scores[rows, best], group)
+
+
+def _pick_across(pts: torch.Tensor, top: torch.Tensor, group
+                 ) -> torch.Tensor:
+    """This rank's (B, F) points of (B,) scores ``top`` -> the point of the
+    largest score over the ranks of ``group``, averaged over the ranks
+    whose maxima tie; ``pts`` itself without a group."""
     if group is None:
         return pts
-    top = scores[rows, best]
     mine = top == _pmax(top, group)
     cand = torch.where(mine[:, None], pts, 0.0)
-    ties = _psum(mine.to(xb.dtype), group)
+    ties = _psum(mine.to(pts.dtype), group)
     return _psum(cand, group) / torch.clamp_min(ties, 1.0)[:, None]
 
 
@@ -141,9 +157,12 @@ def kmeans_plus_plus_init(x: torch.Tensor, k: int,
     return cents if x.dim() == 3 else cents[0]
 
 
-def _lloyd(x: torch.Tensor, c: torch.Tensor, xn: torch.Tensor, group=None):
+def _lloyd(x: torch.Tensor, c: torch.Tensor,
+           xn: Optional[torch.Tensor] = None, group=None):
     """One batched Lloyd step: (new centroids (B, K, F), labels (B, N),
-    inertia (B,)); on ``group`` the centroids and inertia are global."""
+    inertia (B,)); on ``group`` the centroids and inertia are global.
+    ``xn``: the points' squared norms (B, N, 1), if the caller holds
+    them."""
     k = c.shape[1]
     mind2, labels = torch.min(_sq_dists(x, c, xn), dim=2)   # first index
     inertia = _psum(torch.sum(mind2, dim=1), group)
@@ -187,7 +206,10 @@ def fit_centroids(x: torch.Tensor, k: int, seed: int = 42,
                   max_iter: int = 300, tol: float = 1e-4,
                   init_centroids=None, group=None):
     """Lloyd to convergence on a (B, N, F) f32 batch of problems:
-    ``(centroids (B, K, F), n_iter (B,), squared norms (B, N, 1))``.
+    ``(centroids (B, K, F), n_iter (B,), squared norms (B, N, 1))``, the
+    norms None on the card, whose kernels take them in their pass. A CUDA
+    batch the kernels do not take raises ``ValueError``
+    (``ops.kernels.lloyd_scratch``).
 
     Starts from ``init_centroids`` ((K, F) for every problem, or (B, K,
     F)) when given, else from k-means++ with the Gumbel noise of ``seed``.
@@ -196,8 +218,9 @@ def fit_centroids(x: torch.Tensor, k: int, seed: int = 42,
     holds its own points of every problem and the fit is global.
 
     Marked ``kmeans.lloyd`` (k-means++ before it is ``kmeans.init``, count
-    ``picks``), with counts ``problems`` (B) and ``iters``, the loop's
-    iterations: the largest ``n_iter``, each one host sync."""
+    ``picks``), with counts ``problems`` (B), ``iters``, the loop's
+    iterations: the largest ``n_iter``, each one host sync, and ``fused``:
+    1 when the loop ran ``ops.kernels.lloyd_pass``, 0 on ``_lloyd``."""
     if init_centroids is not None:
         init = as_tensor(init_centroids, x.device, torch.float32)
         if init.shape[-2] != k:
@@ -209,29 +232,91 @@ def fit_centroids(x: torch.Tensor, k: int, seed: int = 42,
             x, k, torch.Generator().manual_seed(seed), group)
     with span("kmeans.lloyd", problems=x.shape[0]) as rec:
         tol_abs = _tol_abs(x, tol, group)
-        xn = _sq_norms(x)
         shift = torch.full((x.shape[0],), float("inf"), device=x.device)
         n_iter = torch.zeros((x.shape[0],), dtype=torch.int64,
                              device=x.device)
-        iters = 0
-        while True:
-            active = (shift > tol_abs) & (n_iter < max_iter)
-            if group is not None:
-                # the shifts come from all-reduced centroids; the maximum
-                # over the ranks makes the loop's exit one decision for
-                # them all
-                active = _pmax(active.to(torch.int32), group) > 0
-            if not bool(active.any()):      # the iteration's one host sync
-                break
-            new, _, _ = _lloyd(x, cents, xn, group)
-            step = torch.sum((new - cents) ** 2, dim=(1, 2))
-            cents = torch.where(active[:, None, None], new, cents)
-            shift = torch.where(active, step, shift)
-            n_iter = n_iter + active.to(torch.int64)
-            iters += 1
+        fused = _fused(x)
+        if fused:
+            xn = None
+            cents, n_iter, iters = _lloyd_loop_fused(
+                x, cents, tol_abs, shift, n_iter, max_iter, group)
+        else:
+            xn = _sq_norms(x)
+            cents, n_iter, iters = _lloyd_loop(x, cents, xn, tol_abs, shift,
+                                               n_iter, max_iter, group)
         if rec is not None:
             rec.counts["iters"] = iters
+            rec.counts["fused"] = int(fused)
     return cents, n_iter, xn
+
+
+def _fused(x: torch.Tensor) -> bool:
+    """Whether ``fit_centroids``' loop runs the kernels: for a CUDA batch,
+    with or without a ``group``."""
+    return x.device.type == "cuda"
+
+
+def _lloyd_loop(x, cents, xn, tol_abs, shift, n_iter, max_iter, group):
+    """``fit_centroids``' loop on ``_lloyd``: ``(centroids, n_iter,
+    iterations)``."""
+    iters = 0
+    while True:
+        active = (shift > tol_abs) & (n_iter < max_iter)
+        if group is not None:
+            # the shifts come from all-reduced centroids; the maximum over
+            # the ranks makes the loop's exit one decision for them all
+            active = _pmax(active.to(torch.int32), group) > 0
+        if not bool(active.any()):      # the iteration's one host sync
+            break
+        new, _, _ = _lloyd(x, cents, xn, group)
+        step = torch.sum((new - cents) ** 2, dim=(1, 2))
+        cents = torch.where(active[:, None, None], new, cents)
+        shift = torch.where(active, step, shift)
+        n_iter = n_iter + active.to(torch.int64)
+        iters += 1
+    return cents, n_iter, iters
+
+
+def _lloyd_loop_fused(x, cents, tol_abs, shift, n_iter, max_iter,
+                      group=None):
+    """``fit_centroids``' loop on the card: an iteration is one
+    ``kernels.lloyd_pass``, which updates ``cents``, ``shift`` and
+    ``n_iter`` in place, and one read of its flag (on ``group`` its
+    maximum over the ranks, as the plain loop decides). ``cents`` is
+    copied first (it may be the caller's warm start). Raises
+    ``ValueError`` for points the kernels do not take
+    (``kernels.lloyd_scratch``)."""
+    x = x.contiguous()
+    cents = cents.clone(memory_format=torch.contiguous_format)
+    scratch = kernels.lloyd_scratch(x, cents.shape[1])
+    combine = (None if group is None else
+               lambda part: _global_partials(x, part, group))
+    iters = 0
+    active = ((shift > tol_abs) & (n_iter < max_iter)).any()
+    more = bool(_pmax(active.to(torch.int32), group))
+    while more:                         # the iteration's one host sync
+        flag = kernels.lloyd_pass(x, cents, shift, n_iter, tol_abs,
+                                  max_iter, scratch, combine)
+        more = bool(_pmax(flag, group).item())
+        iters += 1
+    return cents, n_iter, iters
+
+
+def _global_partials(x: torch.Tensor, part, group):
+    """The partials of ``kernels.lloyd_pass`` on this rank's (B, N, F)
+    points, ``part``, made global on ``group``, one block a problem: each
+    cluster's f64 feature sums and int32 count over every rank, and the
+    point farthest from its nearest centroid, (B, 1, F) (this rank's first
+    among equals, picked over the ranks as ``_global_pick`` does)."""
+    sums = _psum(part.sums.sum(dim=-1, keepdim=True), group)
+    counts = _psum(part.counts.sum(dim=-1, keepdim=True, dtype=torch.int32),
+                   group)
+    top = part.far_d.amax(dim=1)
+    first = torch.where(part.far_d == top[:, None], part.far_i,
+                        torch.iinfo(torch.int32).max).amin(dim=1)
+    rows = torch.arange(x.shape[0], device=x.device)
+    far = _pick_across(x[rows, first.long()], top, group)
+    return sums, counts, far[:, None, :]
 
 
 def kmeans_fit_predict(x: torch.Tensor, k: int, seed: int = 42,

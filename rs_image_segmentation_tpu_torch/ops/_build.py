@@ -9,10 +9,10 @@ loads a stale build. Nothing here runs at import time, so the package
 imports on hosts without ``nvcc``.
 
 Flags per source. Every source gets ``NVCC_FLAGS``. The sources in
-``NO_FMA`` (``stretch_indices`` and ``glcm``) compute in floating point and
-are held bit-equal to plain PyTorch versions that round every product, so
-they also get ``--fmad=false``: nvcc would otherwise contract ``a*b + c``
-into one FMA. A new floating-point source held to a plain version joins
+``NO_FMA`` (``stretch_indices``, ``glcm`` and ``kmeans_lloyd``) compute in
+floating point and are held to plain PyTorch versions that round every
+product, so they also get ``--fmad=false``: nvcc would otherwise contract
+``a*b + c`` into one FMA. A new floating-point source held to a plain version joins
 ``NO_FMA``. No source gets ``-use_fast_math``: nvcc's defaults
 ``-prec-div=true`` and ``-prec-sqrt=true`` keep ``/`` and ``sqrtf`` IEEE
 correctly rounded, as PyTorch's are.
@@ -35,10 +35,10 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("lut_hist", "forest_labels", "ccmin_prop", "hist_keep",
-           "stretch_indices", "glcm")
+           "stretch_indices", "glcm", "kmeans_lloyd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-NO_FMA = ("stretch_indices", "glcm")
+NO_FMA = ("stretch_indices", "glcm", "kmeans_lloyd")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

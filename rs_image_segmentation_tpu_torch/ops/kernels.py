@@ -24,10 +24,14 @@ version.
   indices in one pass.
 * ``glcm_grid`` (``csrc/glcm.cu``) replaces ``glcm_grid_pallas``: the five
   GLCM properties of each non-overlapping window, averaged over offsets.
+* ``lloyd_pass`` (``csrc/kmeans_lloyd.cu``) replaces no TPU kernel: one
+  iteration of ``models.kmeans.fit_centroids``' Lloyd loop, in place.
 
 A wrapper takes its plain version only for a tensor on the CPU. For a CUDA
 tensor it launches the kernel on the current stream or raises; nothing
-falls back. Each wrapper counts its launches in ``<wrapper>.launches``.
+falls back. ``lloyd_pass`` takes CUDA tensors only: its plain version is
+``models.kmeans._lloyd``'s loop, which ``fit_centroids`` runs itself on
+CPU tensors. Each wrapper counts its launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -1216,3 +1220,124 @@ def glcm_grid(q: torch.Tensor, levels: int, window: int, step: int,
 
 
 glcm_grid.launches = 0
+
+
+# ------------------------------------------------------------ kmeans_lloyd
+
+LLOYD_POINTS_PER_BLOCK = 2048   # a partials block's points (kPointsPerBlock)
+LLOYD_MAX_K = 32                # clusters the kernels take (kMaxK)
+LLOYD_MAX_F = 64                # features the kernels take (kMaxF)
+_I32_MAX = 2 ** 31 - 1
+
+
+def lloyd_fits(b: int, n: int, k: int, f: int) -> bool:
+    """Whether :func:`lloyd_pass` takes ``b`` problems of ``n`` points, ``k``
+    clusters and ``f`` features."""
+    return (1 <= b <= 65535 and 1 <= n <= _I32_MAX and 1 <= k <= LLOYD_MAX_K
+            and 1 <= f <= LLOYD_MAX_F)
+
+
+class LloydScratch(NamedTuple):
+    """The partials of :func:`lloyd_pass`, one entry for each of the G
+    blocks of ``LLOYD_POINTS_PER_BLOCK`` points of a problem, and its
+    flag."""
+    sums: torch.Tensor      # (B, K, F, G) f64, each cluster's feature sums
+    counts: torch.Tensor    # (B, K, G) int32, each cluster's points
+    far_d: torch.Tensor     # (B, G) f32, the block's farthest distance
+    far_i: torch.Tensor     # (B, G) int32, and its point
+    flag: torch.Tensor      # (1,) int32: 1 when a problem stays active
+
+
+def lloyd_scratch(x: torch.Tensor, k: int) -> LloydScratch:
+    """Zeroed partials for :func:`lloyd_pass` on (B, N, F) f32 points and
+    ``k`` clusters (a skipped problem's entries stay valid indices).
+    Raises ``ValueError`` for points the kernels do not take: another
+    dtype, or a shape past ``lloyd_fits``."""
+    b, n, f = x.shape
+    _require(x.dtype == torch.float32, f"lloyd_pass takes f32 points, not "
+             f"{x.dtype}")
+    if not lloyd_fits(b, n, k, f):
+        raise ValueError(f"no kernel for {b} problems of {n} points, {k} "
+                         f"clusters, {f} features (lloyd_pass takes up to "
+                         f"{LLOYD_MAX_K} clusters and {LLOYD_MAX_F} "
+                         f"features)")
+    g = -(-n // LLOYD_POINTS_PER_BLOCK)
+
+    def new(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=x.device)
+    return LloydScratch(new((b, k, f, g), torch.float64),
+                        new((b, k, g), torch.int32),
+                        new((b, g), torch.float32), new((b, g), torch.int32),
+                        new((1,), torch.int32))
+
+
+_LLOYD_ARGS = [_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+               ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+               _P, _P, _P, _P, _P, _P]
+
+
+def lloyd_pass(x: torch.Tensor, cents: torch.Tensor, shift: torch.Tensor,
+               n_iter: torch.Tensor, tol_abs: torch.Tensor, max_iter: int,
+               scratch: LloydScratch, combine=None) -> torch.Tensor:
+    """One iteration of ``models.kmeans.fit_centroids``' loop on (B, N, F)
+    f32 points, in place, in two launches: for each problem still active
+    (``shift > tol_abs`` and ``n_iter < max_iter``), ``cents`` (B, K, F)
+    f32 become the means of their points (an empty cluster: the point
+    farthest from its nearest centroid, the first on ties), ``shift`` (B,)
+    f32 their squared shift, and ``n_iter`` (B,) int64 rises by one; the
+    other problems are left as they are. Returns ``scratch.flag``, (1,)
+    int32 on the card: 1 when any problem stays active. Distances by the
+    plain version's formula (``models.kmeans._lloyd``), sums in f64 in a
+    fixed order, so a rerun gives the same bits.
+
+    ``combine``, on a process group: a function of ``scratch`` after the
+    first kernel that returns every rank's partials as one block a problem,
+    ``(sums (B, K, F, 1) f64, counts (B, K, 1) int32, the farthest point
+    (B, 1, F) f32)``; the second kernel then reads those."""
+    _require_cuda(x, cents, shift, n_iter, tol_abs, *scratch)
+    b, n, f = x.shape
+    k = cents.shape[1]
+    _require(x.dtype == cents.dtype == shift.dtype == tol_abs.dtype
+             == torch.float32 and n_iter.dtype == torch.int64,
+             "x, cents, shift and tol_abs must be f32, n_iter int64")
+    if not (cents.shape == (b, k, f) and shift.shape == (b,)
+            == n_iter.shape == tol_abs.shape and lloyd_fits(b, n, k, f)):
+        raise ValueError(f"no kernel for {b} problems of {n} points, {k} "
+                         f"clusters, {f} features")
+    _require(scratch.sums.shape == (b, k, f, -(-n // LLOYD_POINTS_PER_BLOCK)),
+             "scratch does not match the points (lloyd_scratch)")
+    state = (cents.data_ptr(), shift.data_ptr(), tol_abs.data_ptr(),
+             n_iter.data_ptr(), max_iter)
+    parts = (scratch.sums.data_ptr(), scratch.counts.data_ptr(),
+             scratch.far_d.data_ptr(), scratch.far_i.data_ptr(),
+             scratch.flag.data_ptr(), _stream(x.device))
+    blocks = scratch.sums.shape[-1]
+    if combine is None:
+        _call("kmeans_lloyd", "lloyd_pass_launch", _LLOYD_ARGS,
+              x.data_ptr(), *state, b, n, k, f, blocks, *parts)
+    else:
+        _call("kmeans_lloyd", "lloyd_partials_launch", _LLOYD_ARGS,
+              x.data_ptr(), *state, b, n, k, f, blocks, *parts)
+        sums, counts, far = combine(scratch)
+        _require(sums.shape == (b, k, f, 1) and sums.dtype == torch.float64
+                 and counts.shape == (b, k, 1) and counts.dtype == torch.int32
+                 and far.shape == (b, 1, f) and far.dtype == torch.float32,
+                 "combine returns (B, K, F, 1) f64 sums, (B, K, 1) int32 "
+                 "counts and a (B, 1, F) f32 point")
+        sums, counts, far = (t.contiguous() for t in (sums, counts, far))
+        # one block a problem, its farthest point row 0 of `far`
+        far_d = torch.zeros((b, 1), dtype=torch.float32, device=x.device)
+        far_i = torch.zeros((b, 1), dtype=torch.int32, device=x.device)
+        _require_cuda(x, sums, counts, far, far_d, far_i)
+        _call("kmeans_lloyd", "lloyd_update_launch",
+              [_P, ctypes.c_longlong, _P, _P, _P, _P, ctypes.c_longlong,
+               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+               _P, _P, _P, _P, _P, _P],
+              far.data_ptr(), 1, *state, b, k, f, 1, sums.data_ptr(),
+              counts.data_ptr(), far_d.data_ptr(), far_i.data_ptr(),
+              scratch.flag.data_ptr(), _stream(x.device))
+    lloyd_pass.launches += 2
+    return scratch.flag
+
+
+lloyd_pass.launches = 0

@@ -39,7 +39,12 @@ scenes of 7 x 600 x 600 from seed 0):
 * ``raw_counts`` on the streamed large scene's raw chunk (7 x 504 x 6000
   of a 6000 x 6000 reflected tiling of scene 0) and on the whole scene
   as the route counts it, 12 chunks into one accumulator, with its plain
-  version's time on the chunk.
+  version's time on the chunk;
+* ``kmeans_lloyd``: one ``lloyd_pass`` (its two kernels) over the KMeans
+  batch's (8, 360 000, 19) scaled features from k-means++ centroids (k 7,
+  every problem kept active), with the plain version's time (one
+  ``models.kmeans._lloyd``), and both loops' host-clock ms an iteration
+  over 50 iterations, each iteration's host sync included.
 
 ``lut_hist``, ``fused_calibrate_stretch`` and ``fused_spectral_indices``
 also report the kernels one call launches and whether its trace holds a
@@ -53,7 +58,7 @@ kernels can be timed by one script on one card:
     python3 rs_image_segmentation_tpu_torch/tools/kernel_times.py \\
         [--root DIR] [--kernels hist_dense,glcm_grid] [--out FILE.json]
 
-``--kernels`` picks the kernels to time (default: all nine).
+``--kernels`` picks the kernels to time (default: all ten).
 
 The timing helpers (``l2_flusher``, ``cold_ms``, ``trace_ms``,
 ``kernel_device_ms``, ``kernel_numbers``) and the fixtures
@@ -86,7 +91,7 @@ BINS = 32768                   # the batched rule path's component-id cap
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 KERNELS = ("forest_labels", "ccmin_prop", "cc_labels", "hist_dense",
            "glcm_grid", "lut_hist", "fused_calibrate_stretch",
-           "fused_spectral_indices", "raw_counts")
+           "fused_spectral_indices", "raw_counts", "kmeans_lloyd")
 CHUNK_ROWS = 504               # the streamed large scene's row chunk
 
 
@@ -577,7 +582,56 @@ def measure(dev, which=KERNELS) -> dict:
         if not np.array_equal(acc.cpu().numpy(), want):
             raise RuntimeError("raw_counts: the scene's counts differ from "
                                "np.bincount")
+
+    if "kmeans_lloyd" in which:
+        out.update(lloyd_numbers(scenes_d, luts_d, cfg, flush))
     return out
+
+
+def lloyd_numbers(scenes_d, luts_d, cfg, flush, k: int = 7,
+                  loop_iters: int = 50) -> dict:
+    """The ``kmeans_lloyd`` row: one ``lloyd_pass`` over the batch's scaled
+    features, every problem active (``tol_abs`` -1), against one plain
+    ``_lloyd``; and both loops' host ms an iteration."""
+    from rs_image_segmentation_tpu_torch.models import kmeans
+    from rs_image_segmentation_tpu_torch.ops import kernels
+    from rs_image_segmentation_tpu_torch.pipeline import turbo
+    x = turbo.kmeans_features(scenes_d, luts_d, cfg).transpose(1, 2)
+    x = x.contiguous()
+    b, n, f = x.shape
+    dev = x.device
+    start = kmeans.kmeans_plus_plus_init(
+        x, k, torch.Generator().manual_seed(42))
+    xn = kmeans._sq_norms(x)
+
+    def state():
+        return (torch.full((b,), -1.0, device=dev),
+                torch.full((b,), float("inf"), device=dev),
+                torch.zeros((b,), dtype=torch.int64, device=dev))
+    tol_abs, shift, n_iter = state()
+    cents = start.clone()
+    scratch = kernels.lloyd_scratch(x, k)
+    res = kernel_numbers(lambda: kernels.lloyd_pass(
+        x, cents, shift, n_iter, tol_abs, 1 << 40, scratch), flush)
+    res["plain_ms"] = cold_ms(lambda: kmeans._lloyd(x, start, xn), flush, 10)
+    loops = {"fused": lambda it: kmeans._lloyd_loop_fused(
+                 x, start, *state(), it),
+             "plain": lambda it: kmeans._lloyd_loop(
+                 x, start, xn, *state(), it, None)}
+    for name, loop in loops.items():
+        loop(2)                                     # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, iters = loop(loop_iters)
+        torch.cuda.synchronize()
+        res[f"{name}_loop_ms_an_iteration"] = (
+            (time.perf_counter() - t0) * 1e3 / iters)
+    # each point read once; the centroids read and written once
+    nbytes = x.numel() * 4 + 2 * b * k * f * 4
+    res["bytes"] = nbytes
+    res["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    res["ops"] = b * n * (2 * k * f + f)
+    return {f"kmeans_lloyd, one pass, {b} x {n} x {f}, k {k}": res}
 
 
 def main(argv=None) -> int:

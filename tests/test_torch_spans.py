@@ -350,7 +350,8 @@ def test_kmeans_batch_spans_and_maps(batch, monkeypatch):
     xs = turbo.kmeans_features(torch.from_numpy(scenes),
                                torch.from_numpy(luts), small)
     _, _, n_iter = turbo.kmeans_fit(xs, 7, 42, 1, False)
-    assert lloyd.counts == {"problems": 2, "iters": int(n_iter.max())}
+    assert lloyd.counts == {"problems": 2, "iters": int(n_iter.max()),
+                            "fused": 0}
     # the benchmark's readers of them, one batch in the session
     monkeypatch.setattr(timing, "spans", lambda: list(recs))
     for name, want in KMEANS_READERS.items():
@@ -367,6 +368,8 @@ KMEANS_READERS = {
     "kmeans_init_ms.batch": lambda init, lloyd: 1e3 * init.duration,
     "kmeans_lloyd_ms.batch": lambda init, lloyd: 1e3 * lloyd.duration,
     "lloyd_iters.batch": lambda init, lloyd: lloyd.counts["iters"],
+    # the CPU's fit runs the plain loop
+    "lloyd_fused_share.batch": lambda init, lloyd: 0.0,
 }
 
 
